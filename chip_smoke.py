@@ -28,11 +28,33 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    on the 16384 x (30x50) batch of ``bench.py::bench_batched_solve``,
    certified, checked against HiGHS on a sample, with the K2 launch count
    of that run; then a 1024 x (30x50) batch with ``>=`` and ``=`` rows
-   through the two-phase loop, every verdict checked against HiGHS.
+   through the two-phase loop, every verdict checked against HiGHS;
+9. K3 (``csrc/fused_pivot_step_bounded.cu``) against its plain PyTorch
+   twin on the card: eight successive steps, after three twin steps that
+   put columns at their upper bounds, on bounded tableaus at 16x128 (mixed
+   operators, artificial-exit rows on, f32 and f64), 32x128 (the bounded
+   30x50 batch, B=1024 and B=16384, no artificial columns) and 64x256
+   (60x100, mixed), Dantzig and Devex, Bland on half the instances, some
+   instances not running; at least one bound flip and one entry from an
+   upper bound must happen;
+10. K3 timed against its twin and torch's ``copy_`` at B=1024 and B=16384
+    (32x128 f32), CUDA events;
+11. the bounded path at full width: ``solve_arrays(..., ub=)`` on the
+    16384 x (30x50) batch of ``bench.py::bench_bounded_batched`` (60 % of
+    the variables bounded), certified, against HiGHS on a sample, with the
+    K3 launch count of that run, its stages on the host clock and one run
+    under ``torch.profiler``; then a 1024 x (30x50) bounded batch with
+    mixed rows through the two-phase loop and a ``solve_lp_sweep`` of 256
+    LPs with general bounds, every verdict against HiGHS.
 
-The line before the last holds the card's name and power limit as
-``nvidia-smi`` prints them; the line before that the kernel record (JSON);
-the last line is ``{"ok": true, "device": {...}}``.
+Each kernel's record gives its time at the main path's largest shape, its
+plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
+operations over the float32 peak, whichever is larger; counted from the
+timed step's own data), and the time of one PyTorch call that computes the
+same function where there is one.  The line before the last holds the
+card's name and power limit as ``nvidia-smi`` prints them; the line before
+that the kernel record (JSON); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import os
@@ -60,6 +82,34 @@ def _gpu_line():
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+# The card's published peaks (H100 SXM data sheet, dense): memory and
+# float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def _bound_ms(nbytes, flops):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _step_bytes(M, N, itemsize, pivot, flip, state_bytes):
+    """Bytes one batched step must move with this run's data: a pivoting
+    instance reads and writes its whole tableau; a flipping one reads its
+    objective row, the entering column and the RHS column and writes the
+    RHS column; any other reads what decides that it stops (the objective
+    row, the entering column and the RHS column).  ``pivot`` and ``flip``
+    are bool tensors over the instances; ``state_bytes`` is every other
+    input read once and output written once."""
+    n_piv = int(pivot.sum())
+    n_flip = int(flip.sum())
+    n_rest = pivot.numel() - n_piv - n_flip
+    elems = n_piv * 2 * M * N + n_flip * (N + 3 * M) + n_rest * (N + 2 * M)
+    return elems * itemsize + state_bytes
 
 
 def _time_ms(fn, warmup=3, reps=20):
@@ -129,8 +179,11 @@ def phase_k1(torch, pivot_kernel):
 
 
 def phase_k1_timing(torch, pivot_kernel, gpu):
-    """ms per pivot of K1 and of its twin, and torch's own copy as the
-    card's streaming yardstick; returns (kernel_ms, twin_ms) at 10240^2."""
+    """ms per pivot of K1, of its twin, of torch's own copy (the card's
+    streaming yardstick) and of ``addr_``, the one PyTorch call closest to
+    K1's function (``T - col (outer) prow``, without K1's row and column
+    writes and the RHS clamp); returns (kernel_ms, twin_ms, addr_ms,
+    bound_ms, bound_by) at 10240^2."""
     dev = torch.device("cuda")
     out = {}
     for R, W in [(2304, 4608), (10240, 10240)]:
@@ -145,12 +198,18 @@ def phase_k1_timing(torch, pivot_kernel, gpu):
         p_ms = _time_ms(lambda: pivot_kernel.pivot_update_ref(
             T, r, s, go, clamp_rhs=True))
         c_ms = _time_ms(lambda: dst.copy_(T))
+        col, prow = T[:, W // 3].clone(), T[R // 2].clone()
+        a_ms = _time_ms(lambda: T.addr_(col, prow, alpha=-1.0))
+        b_ms, b_by = _bound_ms(nbytes, 2 * R * W)
+        resident = (f" ({nbytes / 2e6} MB: L2-resident, the bound "
+                    f"assumes HBM)") if nbytes / 2 < 50e6 else ""
         log(f"[k1-time] {R}x{W} f32 on {gpu}: K1 {k_ms!r} ms/pivot "
             f"({nbytes / k_ms / 1e6!r} GB/s at 2*R*W*4 B), twin "
             f"{p_ms!r} ms/pivot, torch copy_ {c_ms!r} ms "
-            f"({nbytes / c_ms / 1e6!r} GB/s)")
-        out[(R, W)] = (k_ms, p_ms)
-        del T, dst
+            f"({nbytes / c_ms / 1e6!r} GB/s), torch addr_ {a_ms!r} ms; "
+            f"bound {b_ms!r} ms ({b_by}){resident}")
+        out[(R, W)] = (k_ms, p_ms, a_ms, b_ms, b_by)
+        del T, dst, col, prow
     return out[(10240, 10240)]
 
 
@@ -376,11 +435,24 @@ def phase_k2_timing(torch, bk, compile_batch_uniform, gpu):
         p_ms = timed(lambda: bk.fused_pivot_step_ref(*args, devex=True))
         c_ms = timed(lambda: dst.copy_(T))
         nbytes = 2 * B * M * N * 4
+        # The bound, from the timed step's own outcome.
+        T.copy_(T0)
+        basis.copy_(basis0)
+        w.fill_(1.0)
+        did = bk.fused_pivot_step_(*args, devex=True)[7]
+        state = B * (2 * (M - 1) * 4 + 2 * N + 2 * 4 + 1 + 2 * N * 4
+                     + 2 * 4 + 3)
+        step_bytes = _step_bytes(M, N, 4, did, torch.zeros_like(did), state)
+        b_ms, b_by = _bound_ms(step_bytes, 2 * M * N * int(did.sum()))
+        resident = ", L2-resident: the bound assumes HBM" \
+            if B * M * N * 4 < 50e6 else ""
         log(f"[k2-time] B={B} {M}x{N} f32 Devex on {gpu}: K2 {k_ms!r} "
             f"ms/step ({nbytes / k_ms / 1e6!r} GB/s at 2*B*M*N*4 B), twin "
             f"{p_ms!r} ms/step, torch copy_ {c_ms!r} ms "
-            f"({nbytes / c_ms / 1e6!r} GB/s); K2 = {c_ms / k_ms!r} of copy_")
-        out[B] = (k_ms, p_ms)
+            f"({nbytes / c_ms / 1e6!r} GB/s); K2 = {c_ms / k_ms!r} of copy_; "
+            f"bound {b_ms!r} ms ({b_by}, {step_bytes} B{resident}), "
+            f"K2 = {b_ms / k_ms!r} of it")
+        out[B] = (k_ms, p_ms, b_ms, b_by)
         del T0, T, dst, cb
     return out[16384]
 
@@ -435,13 +507,13 @@ def _gate(z_ref, z):
 
 def phase_batched(torch, pt, bk, gpu, B=16384):
     """The batched path through its entry point; returns the K2 launches
-    of this phase."""
+    of the full-width solve."""
     solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
     c, A, b, ops = bench_batch(B)
     warm = solver.solve_arrays(*bench_batch(256), maximize=True)
     check(bool(np.all(warm.status == 0)), "warm-up batch not all optimal")
 
-    bk.LAUNCHES = 0
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solver.solve_arrays(c, A, b, ops, maximize=True)
@@ -493,7 +565,443 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
         f"on the optimal ones, escalated={res.n_escalated}, wall {wall!r} s, "
         f"pivots mean {float(res.pivots.mean())!r} max "
         f"{int(res.pivots.max())}, K2 launches {bk.LAUNCHES - before}")
-    return bk.LAUNCHES
+    return launches_full
+
+
+def bounded_ub(seed, B, n):
+    """``bench.py::bench_bounded_batched``'s bounds: 60 % of the variables
+    bounded, ``ub`` from U(1, 3)."""
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random((B, n)) < 0.6, rng.uniform(1.0, 3.0, (B, n)),
+                    np.inf)
+
+
+class BoundedState:
+    """K3's inputs on the card for a bounded compiled batch: phase-1
+    instances where the batch has them, ``status``/``bland`` as given."""
+
+    def __init__(self, torch, cb, status, bland):
+        dev = torch.device("cuda")
+        self.T = torch.as_tensor(cb.T0, device=dev).contiguous()
+        B, M, N = self.T.shape
+        self.basis = torch.as_tensor(cb.basis, device=dev).contiguous()
+        zero = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+        cm1 = torch.as_tensor(cb.col_mask_p1, device=dev)
+        cm2 = torch.as_tensor(cb.col_mask_p2, device=dev)
+        self.cm1 = torch.cat([cm1, zero], 1)
+        self.cm2 = torch.cat([cm2, zero], 1)
+        self.art = torch.cat([cm1 & ~cm2, zero], 1)
+        self.phase = torch.as_tensor(np.where(cb.need_p1, 1, 2),
+                                     dtype=torch.int32, device=dev)
+        self.status, self.bland = status, bland
+        self.ub = torch.as_tensor(cb.ub_ext, device=dev).contiguous()
+        bl = self.basis.long()
+        self.ub_B = self.ub.gather(1, bl).contiguous()
+        self.is_art_row = self.art.gather(1, bl).contiguous()
+        self.at_upper = torch.zeros((B, N - 1), dtype=torch.bool, device=dev)
+        self.w = torch.ones((B, N), dtype=self.T.dtype, device=dev)
+
+    STATE = ("T", "basis", "at_upper", "w", "ub_B", "is_art_row")
+
+    def args(self):
+        return (self.T, self.basis, self.at_upper, self.cm1, self.cm2,
+                self.phase, self.status, self.bland, self.w, self.ub,
+                self.ub_B, self.is_art_row, self.art)
+
+    def clone(self):
+        other = BoundedState.__new__(BoundedState)
+        other.__dict__.update(self.__dict__)
+        for k in self.STATE:
+            setattr(other, k, getattr(self, k).clone())
+        return other
+
+
+def phase_k3(torch, bk, compile_batch_uniform):
+    """K3 against its twin: three twin steps put columns at their upper
+    bounds, then eight successive steps from the same state; outputs, flags
+    and the bound state equal, T, w and ub_B within one ulp, instances that
+    do not move bit-identical; at least one flip and one entry from an
+    upper bound over all cases.  Returns the worst absolute difference."""
+    dev = torch.device("cuda")
+    cases = [(16, 9, 13, True, np.float32), (16, 9, 13, True, np.float64),
+             (1024, 30, 50, False, np.float32),
+             (16384, 30, 50, False, np.float32),
+             (64, 60, 100, True, np.float32)]
+    worst = 0.0
+    total_flips = total_from_up = 0
+    for B, m, n, mixed, dtype in cases:
+        cb = compile_batch_uniform(*random_batch(B + m, B, m, n, mixed),
+                                   maximize=True, dtype=dtype,
+                                   ub=bounded_ub(B + m + 1, B, n))
+        status = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        status[::5] = 0                       # not running
+        bland = torch.arange(B, device=dev) % 2 == 0
+        for devex in (False, True):
+            k = BoundedState(torch, cb, status, bland)
+            _, M, N = k.T.shape
+            kw = dict(tol=1e-6, devex=devex, with_art=mixed)
+            for _ in range(3):
+                bk.fused_pivot_step_bounded_ref(*k.args(), **kw)
+            err, max_ulp, flips, from_up = 0.0, 0, 0, 0
+            where = f"{B}x{M}x{N} {np.dtype(dtype).name} devex={devex}"
+            for step in range(8):
+                t, before = k.clone(), k.clone()
+                out_k = bk.fused_pivot_step_bounded_(*k.args(), **kw)
+                out_t = bk.fused_pivot_step_bounded_ref(*t.args(), **kw)
+                torch.cuda.synchronize()
+                at = f"{where} step {step}"
+                for name, a, b in zip(("s", "r", "optimal", "unbounded",
+                                       "moving"), out_k[6:], out_t[6:]):
+                    check(torch.equal(a, b), f"K3 {name} differs, {at}")
+                for name in ("basis", "at_upper", "is_art_row"):
+                    check(torch.equal(getattr(k, name), getattr(t, name)),
+                          f"K3 {name} differs, {at}")
+                moving = out_k[10]
+                for name in BoundedState.STATE:
+                    check(torch.equal(getattr(k, name)[~moving],
+                                      getattr(before, name)[~moving]),
+                          f"K3 changed {name} of a still instance, {at}")
+                ulp = max(int(_ulps(getattr(k, x), getattr(t, x)).max())
+                          for x in ("T", "w", "ub_B"))
+                check(ulp <= 1, f"K3 T/w/ub_B {ulp} ulps from the twin, {at}")
+                max_ulp = max(max_ulp, ulp)
+                for x in ("T", "w", "ub_B"):
+                    d = (getattr(k, x) - getattr(t, x)).abs()
+                    err = max(err, float(torch.nan_to_num(d).max()))
+                flip = moving & (k.basis == before.basis).all(1)
+                s = out_k[6].long()[:, None]
+                up = before.at_upper.gather(1, s)[:, 0]
+                flips += int(flip.sum())
+                from_up += int((moving & ~flip & up).sum())
+            log(f"[k3] {where}: 8 steps match the twin (s, r, flags, basis, "
+                f"at_upper, is_art_row equal; T, w and ub_B within "
+                f"{max_ulp} ulp), {flips} flips, {from_up} entries from an "
+                f"upper bound, max_abs_err={err!r}")
+            worst = max(worst, err)
+            total_flips += flips
+            total_from_up += from_up
+        del cb
+    check(total_flips > 0 and total_from_up > 0,
+          f"the bounded machinery did not run: {total_flips} flips, "
+          f"{total_from_up} entries from an upper bound")
+    return worst
+
+
+def phase_k3_timing(torch, bk, compile_batch_uniform, gpu):
+    """ms per step of K3, of its twin and of torch's ``copy_`` of the same
+    (B, 32, 128) f32 tableau, every timed step from the batch's first
+    state; the bound from that step's own outcome.  Returns (kernel_ms,
+    twin_ms, bound_ms, bound_by) at B=16384."""
+    dev = torch.device("cuda")
+    out = {}
+    for B in (1024, 16384):
+        c, A, b, ops = bench_batch(B)
+        cb = compile_batch_uniform(c, A, b, ops, maximize=True,
+                                   ub=bounded_ub(5, B, 50))
+        status = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        bland = torch.zeros((B,), dtype=torch.bool, device=dev)
+        first = BoundedState(torch, cb, status, bland)
+        st = first.clone()
+        _, M, N = st.T.shape
+        dst = torch.empty_like(st.T)
+
+        def timed(step, reps=20, warmup=3):
+            times = []
+            for k in range(warmup + reps):
+                for name in BoundedState.STATE:
+                    getattr(st, name).copy_(getattr(first, name))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                end.synchronize()
+                if k >= warmup:
+                    times.append(start.elapsed_time(end))
+            return statistics.median(times)
+
+        kw = dict(devex=True, with_art=False)
+        k_ms = timed(lambda: bk.fused_pivot_step_bounded_(*st.args(), **kw))
+        p_ms = timed(lambda: bk.fused_pivot_step_bounded_ref(*st.args(),
+                                                             **kw))
+        c_ms = timed(lambda: dst.copy_(st.T))
+        for name in BoundedState.STATE:
+            getattr(st, name).copy_(getattr(first, name))
+        res = bk.fused_pivot_step_bounded_(*st.args(), **kw)
+        moving = res[10]
+        flip = moving & (st.basis == first.basis).all(1)
+        pivot = moving & ~flip
+        # Every other input read once, every output written once: basis,
+        # at_upper, w, ub_B, is_art_row in and out; cm1, cm2, phase,
+        # status, bland, ub, art_mask in; s, r and three flags out.
+        state = B * (2 * (M - 1) * 4 + 2 * (N - 1) + 2 * N * 4
+                     + 2 * (M - 1) * 4 + 2 * (M - 1) + 2 * N + 2 * 4 + 1
+                     + (N - 1) * 4 + N + 2 * 4 + 3)
+        step_bytes = _step_bytes(M, N, 4, pivot, flip, state)
+        b_ms, b_by = _bound_ms(step_bytes, 2 * M * N * int(pivot.sum()))
+        nbytes = 2 * B * M * N * 4
+        resident = ", L2-resident: the bound assumes HBM" \
+            if B * M * N * 4 < 50e6 else ""
+        log(f"[k3-time] B={B} {M}x{N} f32 Devex on {gpu}: K3 {k_ms!r} "
+            f"ms/step ({nbytes / k_ms / 1e6!r} GB/s at 2*B*M*N*4 B), twin "
+            f"{p_ms!r} ms/step, torch copy_ {c_ms!r} ms; the timed step: "
+            f"{int(pivot.sum())} pivots, {int(flip.sum())} flips; bound "
+            f"{b_ms!r} ms ({b_by}, {step_bytes} B{resident}), K3 = "
+            f"{b_ms / k_ms!r} of it")
+        out[B] = (k_ms, p_ms, b_ms, b_by)
+        del first, st, dst, cb
+    return out[16384]
+
+
+def bench_bounded_batch(B, m=30, n=50):
+    """The batch of ``bench.py::bench_bounded_batched`` (same generator and
+    seed): ``bench_batch``'s LPs with 60 % of the variables bounded."""
+    rng = np.random.default_rng(0)
+    A = rng.uniform(0.05, 1.0, size=(B, m, n)).astype(np.float32)
+    b = rng.uniform(1.0, 5.0, size=(B, m)).astype(np.float32)
+    c = rng.uniform(0.1, 1.0, size=(B, n)).astype(np.float32)
+    ub = np.where(rng.random((B, n)) < 0.6,
+                  rng.uniform(1.0, 3.0, (B, n)), np.inf).astype(np.float32)
+    return c, A, b, np.full((m,), -1), ub
+
+
+def mixed_bounded_batch(B, m=30, n=50, seed=77):
+    """``tests/test_bounds.py::test_batched_native_bounds_vs_scipy``'s
+    construction at a fixed shape: rows that hold at a random point, shared
+    mixed operators, minimized, 60 % of the variables bounded (half of
+    them tight at the optimum)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, m, n)).round(2)
+    x0 = rng.uniform(0.2, 2.0, size=(B, n))
+    ops = rng.choice([-1, 0, 1], size=m, p=[0.6, 0.1, 0.3])
+    slack = rng.uniform(0.1, 1.0, size=(B, m))
+    b = np.einsum("bmn,bn->bm", A, x0) + np.where(
+        ops == -1, slack, np.where(ops == 1, -slack, 0.0))
+    c = rng.normal(size=(B, n)).round(2)
+    ub = np.where(rng.random((B, n)) < 0.6,
+                  x0 + rng.uniform(-0.3, 1.5, size=(B, n)).clip(0.01),
+                  np.inf)
+    return c, A, b, ops, ub
+
+
+def general_bounded_lp(seed, rows=(3, 9), boxes=True):
+    """``tests/test_bounds.py::_random_bounded_lp``'s LP as keyword
+    arguments: rows that hold at a random point, and per variable one of
+    [0, inf), free, a box, (-inf, u] and [l, inf) with l possibly negative;
+    ``boxes=False`` leaves the boxes out, so no upper bound survives
+    ``normalize_bounds``."""
+    rng = np.random.default_rng(seed)
+    m, n = int(rng.integers(*rows)), int(rng.integers(3, 11))
+    A = rng.normal(size=(m, n)).round(2)
+    x0 = rng.uniform(-1, 3, size=n)
+    ops = rng.choice([-1, 0, 1], size=m, p=[0.6, 0.1, 0.3]).astype(np.int8)
+    slack = rng.uniform(0.1, 1.0, size=m)
+    b = A @ x0 + np.where(ops == -1, slack, np.where(ops == 1, -slack, 0.0))
+    c = rng.normal(size=n).round(2)
+    kind = rng.integers(0, 5, size=n)
+    if not boxes:
+        kind = np.where(kind == 2, 4, kind)
+    lb, ub = np.zeros(n), np.full(n, np.inf)
+    for j in range(n):
+        if kind[j] == 1:
+            lb[j] = -np.inf
+        elif kind[j] == 2:
+            lb[j] = round(x0[j] - rng.uniform(0, 2), 2)
+            ub[j] = round(x0[j] + rng.uniform(0, 2), 2)
+        elif kind[j] == 3:
+            lb[j], ub[j] = -np.inf, round(x0[j] + rng.uniform(0, 2), 2)
+        elif kind[j] == 4:
+            lb[j] = round(x0[j] - rng.uniform(0, 2), 2)
+    return dict(c=c, A=A, b=b, ops=ops, maximize=bool(rng.integers(0, 2)),
+                lb=lb, ub=ub)
+
+
+def _highs_bounded(c, A, b, ops, maximize, lb, ub):
+    """(status, z) of HiGHS on one LP with bounds, presolve off."""
+    from scipy.optimize import linprog
+
+    le, ge, eq = ops == -1, ops == 1, ops == 0
+    A_ub = np.vstack([A[le], -A[ge]])
+    b_ub = np.concatenate([b[le], -b[ge]])
+    bounds = [(None if np.isneginf(lo) else float(lo),
+               None if np.isinf(hi) else float(hi)) for lo, hi in zip(lb, ub)]
+    ref = linprog(-c if maximize else c,
+                  A_ub=A_ub if len(b_ub) else None,
+                  b_ub=b_ub if len(b_ub) else None,
+                  A_eq=A[eq] if eq.any() else None,
+                  b_eq=b[eq] if eq.any() else None, bounds=bounds,
+                  method="highs", options={"presolve": False})
+    z = None if ref.status != 0 else (-ref.fun if maximize else ref.fun)
+    return ref.status, z
+
+
+def _profile_bounded(torch, pt, tmb, c, A, b, ops, ub, gpu):
+    """Where the bounded solve's time goes: its stages on the host clock
+    (with a sync at each edge), then one more solve under
+    ``torch.profiler``: device busy share of the wall, K3's share of the
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb = tmb.compile_batch_on_device(c, A, b, ops, True, ub=ub,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = solver._solve_compiled(cb)
+    t2 = time.perf_counter()
+    tmb.certify_uniform_result(res, c, A, b, ops, True, ub=ub)
+    t3 = time.perf_counter()
+    log(f"[bounded-stages] on {gpu}: wall {t3 - t0!r} s = assembly "
+        f"{t1 - t0!r} s + _run_batch {t2 - t1!r} s + certify_uniform_result "
+        f"{t3 - t2!r} s (certifier {(t3 - t2) / (t3 - t0)!r} of the wall)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    dev_us, k3_us, k3_n, top = 0.0, 0.0, 0, []
+    for ev in prof.key_averages():
+        # Kernels and copies only: an aten op's record, on the host or as
+        # the profiler's annotation of it on the device's timeline, spans
+        # the device time of what it launched, which is counted already.
+        if getattr(ev, "device_type", None) != DeviceType.CUDA \
+                or ev.key.startswith("aten::"):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
+        dev_us += us
+        top.append((us, ev.count, ev.key))
+        if "fused_pivot_step_bounded" in ev.key:
+            k3_us += us
+            k3_n += ev.count
+    if dev_us == 0:
+        log("[bounded-profile] the profiler saw no device time")
+        return
+    top.sort(reverse=True)
+    log(f"[bounded-profile] on {gpu}: wall {wall!r} s (under the profiler), "
+        f"device time {dev_us / 1e3!r} ms = {dev_us / 1e6 / wall!r} of the "
+        f"wall; K3 {k3_us / 1e3!r} ms over {k3_n} launches = "
+        f"{k3_us / dev_us!r} of the device time")
+    for us, n, key in top[:6]:
+        log(f"[bounded-profile]   {us / 1e3!r} ms, {n} calls: {key[:90]}")
+
+
+def phase_bounded(torch, pt, bk, gpu, B=16384):
+    """The bounded path through its entry points; returns the K3 launches
+    of the full-width solve."""
+    from simplex_tpu_torch.models import batched as tmb
+
+    solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
+    c, A, b, ops, ub = bench_bounded_batch(B)
+    cw, Aw, bw, opsw, ubw = bench_bounded_batch(256)
+    warm = solver.solve_arrays(cw, Aw, bw, opsw, maximize=True, ub=ubw)
+    check(bool(np.all(warm.status == 0)), "bounded warm-up not all optimal")
+
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
+    wall = time.perf_counter() - t0
+    k3_launches, k2_launches = bk.LAUNCHES_K3, bk.LAUNCHES
+
+    check(res.status.shape == (B,) and bool(np.all(res.status == 0)),
+          f"{int(np.sum(res.status != 0))} of {B} bounded instances not "
+          f"optimal")
+    check(res.certified is not None and bool(np.all(res.certified)),
+          "not every bounded instance certified")
+    check(res.at_upper is not None and bool(res.at_upper.any()),
+          "no column ended at its upper bound")
+    check(bool(np.all(np.isfinite(res.x))) and res.x.shape == (B, 50),
+          "x not finite")
+    check(bool(np.all(res.x <= ub + 1e-5)), "x above its upper bound")
+    pmax = int(res.pivots.max())
+    check(k3_launches >= pmax,
+          f"K3 launches {k3_launches} < max pivots {pmax}")
+    check(k2_launches == 0, f"the bounded solve launched K2 {k2_launches}x")
+    sample = np.random.default_rng(1).choice(B, size=256, replace=False)
+    t1 = time.perf_counter()
+    lb0 = np.zeros(50)
+    for i in sample:
+        st, z = _highs_bounded(c[i].astype(np.float64),
+                               A[i].astype(np.float64),
+                               b[i].astype(np.float64), ops, True, lb0,
+                               ub[i].astype(np.float64))
+        check(st == 0 and _gate(z, res.z[i]),
+              f"bounded instance {i}: z={res.z[i]!r}, HiGHS {z!r} "
+              f"(status {st})")
+    highs_s = time.perf_counter() - t1
+    log(f"[bounded] {B} x (30x50), 60 % bounded, on {gpu}: all status 0 "
+        f"and certified, escalated={res.n_escalated}, "
+        f"{int(res.at_upper.any(1).sum())} instances end with columns at "
+        f"upper, device solve {res.solve_time!r} s (with syncs), end-to-end "
+        f"wall {wall!r} s = {B / wall!r} LPs/s, pivots (and flips) mean "
+        f"{float(res.pivots.mean())!r} max {pmax}, nit {res.nit}, K3 "
+        f"launches {k3_launches}; z within 1e-6(1+|z|) of HiGHS on 256 "
+        f"sampled ({highs_s!r} s on the host)")
+    _profile_bounded(torch, pt, tmb, c, A, b, ops, ub, gpu)
+
+    Bm = 1024
+    c, A, b, ops, ub = mixed_bounded_batch(Bm)
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    t0 = time.perf_counter()
+    res = solver.solve_arrays(c, A, b, ops, maximize=False, ub=ub)
+    wall = time.perf_counter() - t0
+    check(bk.LAUNCHES_K3 > 0, "the mixed bounded batch launched K3 no time")
+    counts = {}
+    for i in range(Bm):
+        st, z = _highs_bounded(c[i], A[i], b[i], ops, False, np.zeros(50),
+                               ub[i])
+        check(int(res.status[i]) == st,
+              f"mixed bounded instance {i}: status {res.status[i]}, HiGHS "
+              f"{st}")
+        if st == 0:
+            check(_gate(z, res.z[i]),
+                  f"mixed bounded instance {i}: z={res.z[i]!r}, HiGHS {z!r}")
+        counts[st] = counts.get(st, 0) + 1
+    log(f"[bounded] {Bm} x (30x50) mixed <=/=/>= rows, bounded, through the "
+        f"two-phase loop: statuses equal HiGHS on all ({counts}), z within "
+        f"the gate on the optimal ones, escalated={res.n_escalated}, wall "
+        f"{wall!r} s, pivots mean {float(res.pivots.mean())!r} max "
+        f"{int(res.pivots.max())}, K3 launches {bk.LAUNCHES_K3}")
+
+    # The sweep: shapes and bound kinds mixed; the 224 LPs with boxes keep
+    # finite upper bounds (K3), the 32 taller ones without boxes form a
+    # bucket with none (K2).
+    kws = [general_bounded_lp(s) for s in range(1000, 1224)] + \
+        [general_bounded_lp(s, rows=(9, 17), boxes=False)
+         for s in range(2000, 2032)]
+    lps = [pt.LinearProgram(**kw) for kw in kws]
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    t0 = time.perf_counter()
+    out = pt.solve_lp_sweep(lps, pt.SolverConfig(device="cuda"))
+    wall = time.perf_counter() - t0
+    check(bk.LAUNCHES > 0 and bk.LAUNCHES_K3 > 0,
+          f"the sweep launched K2 {bk.LAUNCHES}x and K3 "
+          f"{bk.LAUNCHES_K3}x; both must run")
+    counts = {}
+    for i, (kw, (x, z, st, ok)) in enumerate(zip(kws, out)):
+        st_ref, z_ref = _highs_bounded(kw["c"], kw["A"], kw["b"], kw["ops"],
+                                       kw["maximize"], kw["lb"], kw["ub"])
+        check(st == st_ref, f"sweep LP {i}: status {st}, HiGHS {st_ref}")
+        if st_ref == 0:
+            check(ok and _gate(z_ref, z),
+                  f"sweep LP {i}: z={z!r}, HiGHS {z_ref!r}")
+            check(bool(np.all(x >= kw["lb"] - 1e-6))
+                  and bool(np.all(x <= kw["ub"] + 1e-6)),
+                  f"sweep LP {i}: x outside its bounds")
+        counts[st] = counts.get(st, 0) + 1
+    log(f"[sweep] {len(lps)} LPs of mixed shapes with general bounds: "
+        f"statuses and objectives equal HiGHS on all ({counts}), wall "
+        f"{wall!r} s, K2 launches {bk.LAUNCHES}, K3 launches "
+        f"{bk.LAUNCHES_K3}")
+    return k3_launches
 
 
 def main():
@@ -532,7 +1040,8 @@ def main():
 
     # 3. K1 against its twin, then timed
     max_err = phase_k1(torch, pivot_kernel)
-    k_ms, p_ms = phase_k1_timing(torch, pivot_kernel, gpu)
+    k_ms, p_ms, a_ms, k1_bound, k1_by = phase_k1_timing(torch, pivot_kernel,
+                                                         gpu)
 
     # 4. report path through the CLI
     pivot_kernel.LAUNCHES = 0
@@ -546,12 +1055,23 @@ def main():
 
     # 6. K2 against its twin, 7. timed
     k2_err = phase_k2(torch, bk, compile_batch_uniform)
-    k2_ms, k2_plain_ms = phase_k2_timing(torch, bk, compile_batch_uniform,
-                                         gpu)
+    k2_ms, k2_plain_ms, k2_bound, k2_by = phase_k2_timing(
+        torch, bk, compile_batch_uniform, gpu)
 
     # 8. the batched path at full width
     k2_launches = phase_batched(torch, pt, bk, gpu)
-    log(f"[done] phases 1-8 in {time.perf_counter() - t_start!r} s")
+
+    # 9. K3 against its twin, 10. timed
+    t_k3 = time.perf_counter()
+    k3_err = phase_k3(torch, bk, compile_batch_uniform)
+    k3_ms, k3_plain_ms, k3_bound, k3_by = phase_k3_timing(
+        torch, bk, compile_batch_uniform, gpu)
+
+    # 11. the bounded path at full width
+    k3_launches = phase_bounded(torch, pt, bk, gpu)
+    t_end = time.perf_counter()
+    log(f"[done] phases 1-11 in {t_end - t_start!r} s, of which phases "
+        f"9-11 {t_end - t_k3!r} s")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",
@@ -562,6 +1082,9 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": a_ms,
     }, {
         "name": "K2 fused_pivot_step",
         "route": "cuda",
@@ -571,6 +1094,21 @@ def main():
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "K3 fused_pivot_step_bounded",
+        "route": "cuda",
+        "source": "simplex_tpu_torch/csrc/fused_pivot_step_bounded.cu",
+        "replaces": "simplex_tpu/ops/pallas_batched.py:501",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
     }]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

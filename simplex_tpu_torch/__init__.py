@@ -6,7 +6,9 @@ two-phase dense tableau simplex on torch tensors, whose pivot runs through
 the hand-written Hopper kernel K1, ``csrc/pivot_update.cu``, on a CUDA
 device -> f64 certification -> the report), and batches of LPs of one
 padded shape (``BatchedSimplexSolver``, ``solve_lp_batch``), whose pivot
-step runs through the fused kernel K2, ``csrc/fused_pivot_step.cu``.  The
+step runs through the fused kernel K2, ``csrc/fused_pivot_step.cu``, or,
+with native upper bounds (``solve_arrays(ub=...)``, ``solve_lp_sweep``),
+through the bounded kernel K3, ``csrc/fused_pivot_step_bounded.cu``.  The
 package imports torch, numpy and scipy and never JAX, so it runs on a
 machine without JAX.
 """
@@ -14,7 +16,12 @@ __version__ = "0.1.0"
 
 from .config import SolverConfig
 from .core.problem import LinearProgram, compile_standard_form
-from .models.batched import BatchResult, BatchedSimplexSolver, solve_lp_batch
+from .models.batched import (
+    BatchResult,
+    BatchedSimplexSolver,
+    solve_lp_batch,
+    solve_lp_sweep,
+)
 from .models.dense import SimplexResult, solve_lp
 
 __all__ = [
@@ -26,4 +33,5 @@ __all__ = [
     "compile_standard_form",
     "solve_lp",
     "solve_lp_batch",
+    "solve_lp_sweep",
 ]

@@ -1,11 +1,14 @@
-"""Batched tableau simplex on torch (port of ``simplex_tpu/ops/batched.py``,
-classic path).
+"""Batched tableau simplex on torch (port of ``simplex_tpu/ops/batched.py``).
 
 One padded shape, many LP instances: ``T`` is (B, M, N) with the objective
-row last and the RHS column last, ``basis`` (B, M-1) int32.  The step of
-every iteration goes through kernel K2 (``ops/batched_kernel.py``) or, with
-``backend="xla"``, through the unfused torch step (:func:`_select_pivot_b`,
-:func:`_devex_update_b`, :func:`_pivot_update_b`), the counterpart of the
+row last and the RHS column last, ``basis`` (B, M-1) int32.  Two solvers:
+:func:`solve_tableau_batch` for ``x >= 0`` and
+:func:`solve_tableau_batch_bounded` for ``0 <= x <= ub`` with the bounds
+kept native (bound flips, no extra rows).  The step of every iteration
+goes through kernel K2, or K3 for the bounded solver
+(``ops/batched_kernel.py``), or, with ``backend="xla"``, through the
+unfused torch step (:func:`_select_pivot_b`, :func:`_devex_update_b` and
+:func:`_pivot_update_b`; :func:`_bounded_step_b`), the counterpart of the
 reference's ``backend="xla"``.
 
 Differences from the JAX module, all deliberate:
@@ -25,12 +28,13 @@ Differences from the JAX module, all deliberate:
   ``since_ref >= refactor_every`` schedule, so they fall at other points
   of a flipped instance's pivot sequence than in the reference.  Parity
   for this loop is at solve level: the same verdicts and objectives.
-* The K2 path updates the tableau in place on the loop's own copy; the
-  unfused helpers stay functional, like the reference.
+* K2 and K3 update the tableau and the carried state in place on the
+  loop's own copies; the unfused helpers stay functional, like the
+  reference.  The unfused bounded step is one function, where the
+  reference writes it inline in each of its two loops.
 * No fallback to the unfused step for batch counts that no block divides
-  (``ops/batched.py:306-316`` of the reference, a Mosaic constraint): K2
-  takes any batch count.
-* Bounded batches (``ub``) are not in this module yet: their step is K3.
+  (``ops/batched.py:306-316`` and ``:671-676`` of the reference, a Mosaic
+  constraint): K2 and K3 take any batch count.
 """
 from __future__ import annotations
 
@@ -45,7 +49,13 @@ from ..core.problem import (
     STATUS_OPTIMAL,
     STATUS_UNBOUNDED,
 )
-from .batched_kernel import fma_rn, fused_pivot_step_, fused_pivot_step_ref
+from .batched_kernel import (
+    fma_rn,
+    fused_pivot_step_,
+    fused_pivot_step_bounded_,
+    fused_pivot_step_bounded_ref,
+    fused_pivot_step_ref,
+)
 
 RUNNING = -1
 _INT_MAX = int(np.iinfo(np.int32).max)
@@ -56,9 +66,9 @@ _FLIP_CHUNK = 8
 
 # config.batched_backend -> the step that runs every iteration.
 _BACKENDS = {
-    "auto": "k2",                # K2: the kernel on CUDA, its twin on CPU
-    "pallas": "k2",
-    "pallas_interpret": "twin",  # K2's twin on any device
+    "auto": "kernel",            # K2 / K3: the kernel on CUDA, its twin on CPU
+    "pallas": "kernel",
+    "pallas_interpret": "twin",  # the kernel's twin on any device
     "xla": "unfused",            # the unfused torch step
 }
 
@@ -71,6 +81,8 @@ def batch_state_from_compiled(cb, device, dtype):
     tensors, and returns the keyword arguments of
     :func:`solve_tableau_batch` for the arrays: ``T0`` and the objective
     rows cast to ``dtype``, ``basis0`` int32, masks and ``need_p1`` bool.
+    A bounded batch (``ub_ext`` set) also gives ``ub`` in ``dtype``: the
+    keyword arguments of :func:`solve_tableau_batch_bounded`.
     """
     def t(a, dt):
         if isinstance(a, torch.Tensor):
@@ -85,6 +97,7 @@ def batch_state_from_compiled(cb, device, dtype):
         "obj_row_p1": t(cb.obj_row_p1, dtype),
         "obj_row_p2": t(cb.obj_row_p2, dtype),
         "need_p1": t(cb.need_p1, torch.bool),
+        **({} if cb.ub_ext is None else {"ub": t(cb.ub_ext, dtype)}),
     }
 
 
@@ -268,6 +281,194 @@ def _refactor_b(T, basis, T0_rows, raw_obj, active):
     return torch.where(ok[:, None, None], T_new, T)
 
 
+def _evict_artificials_bounded_b(T, basis, at_upper, art_mask_ext,
+                                 col_mask_p2, tol):
+    """Post-phase-1 eviction with bounds: entering candidates must be
+    nonbasic at their lower bound (see the JAX function)."""
+    for i in range(T.shape[1] - 1):
+        is_art = art_mask_ext.gather(1, basis[:, i:i + 1].long())[:, 0]
+        cand = col_mask_p2 & ~at_upper & (T[:, i, :-1].abs() > tol)
+        j = torch.argmax(cand.to(torch.int32), dim=-1)
+        active = is_art & torch.any(cand, dim=-1)
+        T, basis = _pivot_update_b(T, basis, torch.full_like(j, i), j, active)
+    return T, basis
+
+
+def _at_upper_terms(at_upper, ub, raw_obj):
+    """``u_U``, the at-upper columns at their bound (0 elsewhere), and the
+    objective's at-upper part ``c_U · u_U``, per instance."""
+    ub_safe = torch.where(torch.isfinite(ub), ub, 0.0)
+    u_vec = torch.where(at_upper, ub_safe, 0.0)
+    z_up = torch.where(at_upper, raw_obj[:, :-1] * ub_safe, 0.0).sum(-1)
+    return u_vec, z_up
+
+
+def _refine_solution_bounded_b(T, basis, basis0, T0_rows, raw_obj, at_upper,
+                               ub):
+    """Bounded twin of :func:`_refine_solution_b`: the Newton residual is
+    taken against ``b_eff = b0 - A u_U`` and the objective adds the
+    at-upper terms.  Returns a new ``T``."""
+    Bmat = _basis_columns(T0_rows, basis)
+    Minv = _basis_columns(T[:, :-1, :], basis0)
+    u_vec, z_up = _at_upper_terms(at_upper, ub, raw_obj)
+    b_eff = T0_rows[:, :, -1] - torch.bmm(T0_rows[:, :, :-1],
+                                          u_vec[:, :, None])[:, :, 0]
+    xB = T[:, :-1, -1]
+    r0 = b_eff - torch.bmm(Bmat, xB[:, :, None])[:, :, 0]
+    xB1 = xB + torch.bmm(Minv, r0[:, :, None])[:, :, 0]
+    r1 = b_eff - torch.bmm(Bmat, xB1[:, :, None])[:, :, 0]
+    better = ((r1 * r1).sum(-1) < (r0 * r0).sum(-1)) \
+        & torch.all(torch.isfinite(xB1), dim=-1)
+    xB_out = torch.where(better[:, None], xB1, xB)
+    z_min = (raw_obj.gather(1, basis.long()) * xB_out).sum(-1) + z_up
+    T = T.clone()
+    T[:, :-1, -1] = xB_out
+    T[:, -1, -1] = -z_min
+    return T
+
+
+def _refactor_bounded_b(T, basis, at_upper, ub, T0_rows, raw_obj, active):
+    """Bounded exact refactorization: ``B^{-1} A`` and the reduced costs as
+    in :func:`_refactor_b`, the RHS column solved against ``b_eff`` and the
+    objective cell with the at-upper terms.  Inactive, singular and
+    non-finite instances keep their tableau.  Returns a new ``T``."""
+    Bmat = _basis_columns(T0_rows, basis)
+    u_vec, z_up = _at_upper_terms(at_upper, ub, raw_obj)
+    b_eff = T0_rows[:, :, -1] - torch.bmm(T0_rows[:, :, :-1],
+                                          u_vec[:, :, None])[:, :, 0]
+    rhs_all = torch.cat([T0_rows[:, :, :-1], b_eff[:, :, None]], dim=2)
+    T_rows, info = torch.linalg.solve_ex(Bmat, rhs_all)
+    basis_costs = raw_obj.gather(1, basis.long())
+    obj = raw_obj - torch.bmm(basis_costs[:, None, :], T_rows)[:, 0]
+    obj[:, -1] = -((basis_costs * T_rows[:, :, -1]).sum(-1) + z_up)
+    T_new = torch.cat([T_rows, obj[:, None, :]], dim=1)
+    ok = active & (info == 0) & torch.all(torch.isfinite(T_new), dim=(1, 2))
+    return torch.where(ok[:, None, None], T_new, T)
+
+
+def _clip_b(x, ub):
+    """``clip(x, 0, ub)`` as ``jnp.clip``: ``min(ub, max(0, x))``."""
+    return torch.minimum(ub, torch.clamp_min(x, 0.0))
+
+
+def _bounded_step_b(T, basis, at_upper, col_mask, in_p1, live, use_bland, w,
+                    ub, ub_B, is_art_row, art_mask_ext, tol, devex, with_art):
+    """The unfused bounded step, the reference's ``backend="xla"`` loop
+    body (written there inline in both loops; ``with_art`` is the general
+    loop's, without it the ``phase2_only`` loop's).  ``w`` is (B, n).
+
+    It computes what K3 computes, with the reference's own rounding: all
+    five of its product-sums as one fused multiply-add in float32 (the
+    two Harris numerators, the rank-1 update, the RHS steps ``xB - dd·θ``
+    and ``xB - dd·ub_s``), and the objective cell as ``z + σ·rc_s·θ``
+    (also one fused multiply-add) where K3 steps it like a constraint
+    row.  Returns new tensors ``(T, basis, at_upper, w, ub_B, is_art_row,
+    s, r, optimal, unbounded, moving)``; an instance that does not move
+    keeps its tableau and state."""
+    B, M, N = T.shape
+    dt, dev = T.dtype, T.device
+    inf = math.inf
+    rc = T[:, -1, :-1]
+    eligible = (col_mask & ~at_upper & (rc < -tol)) \
+        | (col_mask & at_upper & (rc > tol))
+    viol = torch.where(eligible, rc.abs(), -inf)
+    if devex:
+        s_price = torch.argmax(torch.where(eligible, (viol * viol) / w, -inf),
+                               dim=-1)
+    else:
+        s_price = torch.argmax(viol, dim=-1)
+    s_bland = torch.argmax(eligible.to(torch.int32), dim=-1)
+    s = torch.where(use_bland, s_bland, s_price)
+    optimal = ~torch.any(eligible, dim=-1)
+    sl = s[:, None]
+    s_from_up = at_upper.gather(1, sl)[:, 0]
+    sigma = torch.where(s_from_up, -1.0, 1.0).to(dt)
+    rc_s = rc.gather(1, sl)[:, 0]
+    ub_s = ub.gather(1, sl)[:, 0]
+    ub_s_safe = torch.where(torch.isfinite(ub_s), ub_s, 0.0)
+
+    dd = sigma[:, None] * _gather_col(T, s)[:, :-1]
+    xB = T[:, :-1, -1]
+    pos = dd > tol
+    neg = (dd < -tol) & torch.isfinite(ub_B)
+    span = ub_B - xB
+    xB_c = torch.clamp_min(xB, 0.0)
+    span_c = torch.clamp_min(span, 0.0)
+    pos_dd = torch.where(pos, dd, 1.0)
+    neg_dd = torch.where(neg, -dd, 1.0)
+    t_lo = torch.where(pos, xB_c / pos_dd, inf)
+    cand = pos | neg
+    if with_art:
+        art_exit = (~in_p1)[:, None] & is_art_row & (dd.abs() > tol)
+        t_lo = torch.where(art_exit, 0.0, t_lo)
+        cand = cand | art_exit
+    t_hi = torch.where(neg, span_c / neg_dd, inf)
+    t_row = torch.minimum(t_lo, t_hi)
+    min_row = torch.amin(t_row, dim=-1)
+    theta = torch.minimum(min_row, ub_s)
+    unbounded = ~optimal & torch.isinf(theta)
+    flip = ~optimal & ~unbounded & (ub_s <= min_row)
+    theta_safe = torch.where(torch.isfinite(theta), theta, 0.0)
+
+    tol_t = torch.tensor(tol, dtype=dt, device=dev)
+    t_lo_rel = torch.where(pos, fma_rn(1.0 + xB.abs(), tol_t, xB_c) / pos_dd,
+                           inf)
+    t_hi_rel = torch.where(neg, fma_rn(1.0 + span.abs(), tol_t, span_c)
+                           / neg_dd, inf)
+    theta_max = torch.amin(torch.minimum(t_lo_rel, t_hi_rel), dim=-1)
+    harris_cand = cand & (t_row <= theta_max[:, None])
+    hval = dd.abs()
+    if with_art:
+        harris_cand = harris_cand | art_exit
+        hval = hval + torch.where(art_exit, torch.tensor(1e30, dtype=dt,
+                                                         device=dev), 0.0)
+    r_harris = torch.argmax(torch.where(harris_cand, hval, -inf), dim=-1)
+    eps = torch.finfo(dt).eps
+    near = cand & (t_row <= (min_row + 64.0 * eps
+                             * (1.0 + min_row.abs()))[:, None])
+    r_bland = torch.argmin(torch.where(near, basis, _INT_MAX), dim=-1)
+    r = torch.where(use_bland, r_bland, r_harris)
+    rl = r[:, None]
+    leave_up = t_hi.gather(1, rl)[:, 0] < t_lo.gather(1, rl)[:, 0]
+
+    moving = live & ~optimal & ~unbounded
+    do_pivot = moving & ~flip
+    do_flip = moving & flip
+    if devex:
+        w = _devex_update_b(w, T, basis, r, s, do_pivot)
+
+    z_min_old = -T[:, -1, -1]
+    step_z = sigma * rc_s
+    idx_c = torch.arange(N - 1, device=dev)
+    s_hot = idx_c == sl
+    row_hot = torch.arange(M - 1, device=dev) == rl
+    x_enter = torch.where(s_from_up, ub_s_safe - theta_safe, theta_safe)
+    xB_piv = torch.where(row_hot, x_enter[:, None],
+                         fma_rn(-dd, theta_safe[:, None], xB))
+    j_out = basis.gather(1, rl)
+    T_upd, basis_upd = _pivot_update_b(T, basis, r, s, do_pivot)
+    upd_row = do_pivot[:, None] & row_hot
+    ub_B = torch.where(upd_row, ub_s[:, None], ub_B)
+    if with_art:
+        is_art_row = torch.where(upd_row, art_mask_ext.gather(1, sl),
+                                 is_art_row)
+    T_upd[:, :-1, -1] = torch.where(
+        do_pivot[:, None], _clip_b(xB_piv, ub_B),
+        torch.where(do_flip[:, None],
+                    _clip_b(fma_rn(-dd, ub_s_safe[:, None], xB), ub_B), xB))
+    T_upd[:, -1, -1] = -torch.where(
+        do_pivot, fma_rn(step_z, theta_safe, z_min_old),
+        torch.where(do_flip, fma_rn(step_z, ub_s_safe, z_min_old),
+                    z_min_old))
+    at_up_piv = torch.where(idx_c == j_out, leave_up[:, None], at_upper) \
+        & ~s_hot
+    at_upper = torch.where(do_pivot[:, None], at_up_piv,
+                           torch.where(do_flip[:, None], at_upper ^ s_hot,
+                                       at_upper))
+    return (T_upd, basis_upd, at_upper, w, ub_B, is_art_row, s, r, optimal,
+            unbounded, moving)
+
+
 def _step(kind, T, basis, cm1f, cm2f, col_mask, phase, status, use_bland, w,
           tol, devex):
     """One pivot step of every instance; returns ``(T, basis, optimal,
@@ -275,7 +476,7 @@ def _step(kind, T, basis, cm1f, cm2f, col_mask, phase, status, use_bland, w,
     padded (B, N) weights ``w`` in place; the unfused step returns new
     tensors for ``T`` and ``basis`` and writes ``w`` in place."""
     if kind != "unfused":
-        step = fused_pivot_step_ if kind == "k2" else fused_pivot_step_ref
+        step = fused_pivot_step_ if kind == "kernel" else fused_pivot_step_ref
         out = step(T, basis, cm1f, cm2f, phase, status, use_bland, w,
                    tol=tol, devex=devex)
         return T, basis, out[5], out[6], out[7]
@@ -288,6 +489,30 @@ def _step(kind, T, basis, cm1f, cm2f, col_mask, phase, status, use_bland, w,
         w[:, :-1] = _devex_update_b(w[:, :-1], T, basis, r, s, active)
     T, basis = _pivot_update_b(T, basis, r, s, active, clamp_rhs=True)
     return T, basis, optimal, unbounded, active
+
+
+def _step_bounded(kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
+                  use_bland, w, ub, art_mask_ext, tol, devex, with_art):
+    """One bounded step of every instance; ``bst`` holds the carried bound
+    state ``at_upper``, ``ub_B`` and ``is_art_row``.  K3 and its twin
+    update ``T``, ``basis``, ``bst`` and the padded (B, N) weights in place;
+    the unfused step returns new ``T`` and ``basis``, stores new tensors in
+    ``bst`` and writes ``w`` in place.  Returns ``(T, basis, optimal,
+    unbounded, moving)``."""
+    if kind != "unfused":
+        step = (fused_pivot_step_bounded_ if kind == "kernel"
+                else fused_pivot_step_bounded_ref)
+        out = step(T, basis, bst["at_upper"], cm1f, cm2f, phase, status,
+                   use_bland, w, ub, bst["ub_B"], bst["is_art_row"],
+                   art_mask_ext, tol=tol, devex=devex, with_art=with_art)
+        return T, basis, out[8], out[9], out[10]
+    out = _bounded_step_b(T, basis, bst["at_upper"], col_mask, phase == 1,
+                          status == RUNNING, use_bland, w[:, :-1], ub,
+                          bst["ub_B"], bst["is_art_row"], art_mask_ext, tol,
+                          devex, with_art)
+    T, basis, bst["at_upper"], w[:, :-1], bst["ub_B"], bst["is_art_row"] = \
+        out[:6]
+    return T, basis, out[8], out[9], out[10]
 
 
 def _read(*vals):
@@ -317,10 +542,55 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
     (the caller asserts ``need_p1`` is all False) runs the loop without
     phase flips; see the module docstring for the chunked loop.
     """
+    T, basis, _, status, iters, pivots = _solve_loop(
+        T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
+        need_p1, None, tol, max_iters, bland_after, feas_tol, refactor_every,
+        backend, devex, phase2_only)
+    return T, basis, status, iters, pivots
+
+
+def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
+                                obj_row_p1, obj_row_p2, need_p1, ub,
+                                tol: float = 1e-6, max_iters: int = 4096,
+                                bland_after: int = 1024,
+                                feas_tol: float = 1e-5,
+                                refactor_every: int = 64,
+                                backend: str = "auto", devex: bool = False,
+                                phase2_only: bool = False):
+    """Solve a batch of LPs with native upper bounds ``0 <= x <= ub``.
+
+    Arguments as :func:`solve_tableau_batch`, plus ``ub`` (B, n) in the
+    tableau's dtype, +inf where a column is unbounded (slack, artificial
+    and padding columns must be +inf; fixed columns, ``ub == 0``, masked
+    out of both column masks by the compiler).  The step: a column enters
+    from its lower bound when rc < -tol, from its upper bound when
+    rc > tol; the step length is limited by a basic variable reaching 0
+    or its own upper bound, or by the entering variable reaching its other
+    bound, a bound flip (no basis change).  ``backend`` as in
+    :func:`solve_tableau_batch`, with K3 in K2's place; ``phase2_only``
+    batches have no artificial columns, so K3 runs without its
+    artificial-exit rows.
+
+    Returns ``(T, basis, at_upper, status, iters, pivots)``: ``at_upper``
+    (B, n) bool marks the nonbasic columns at their upper bound, and
+    ``pivots`` counts pivots and bound flips.
+    """
+    return _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1,
+                       obj_row_p2, need_p1, ub, tol, max_iters, bland_after,
+                       feas_tol, refactor_every, backend, devex, phase2_only)
+
+
+def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
+                need_p1, ub, tol, max_iters, bland_after, feas_tol,
+                refactor_every, backend, devex, phase2_only):
+    """The chunked loop of both solvers; ``ub`` None is the classic one.
+    Returns ``(T, basis, at_upper, status, iters, pivots)``, ``at_upper``
+    None for the classic solver."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown batched backend {backend!r}; expected "
                          f"one of {sorted(_BACKENDS)}")
     kind = _BACKENDS[backend]
+    bounded = ub is not None
     dev, dt = T0.device, T0.dtype
     Bsz, M, N = T0.shape
     i32 = torch.int32
@@ -340,10 +610,26 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
     b_scale = 1.0 + torch.amax(T0[:, :-1, -1].abs(), dim=1)
     neg_tol = torch.tensor(-tol, dtype=dt, device=dev)
     art_mask_ext = torch.cat([col_mask_p1 & ~col_mask_p2, zero_lane], dim=1)
+    bst = None
+    if bounded:
+        # The carried bound state, gathered by the initial basis.
+        ub = ub.to(dt).contiguous()
+        bl = basis.long()
+        bst = {"at_upper": torch.zeros((Bsz, N - 1), dtype=torch.bool,
+                                       device=dev),
+               "ub_B": ub.gather(1, bl).contiguous(),
+               "is_art_row": art_mask_ext.gather(1, bl).contiguous()}
 
     def obj_rows():
         """Each instance's raw cost row for its phase."""
         return torch.where((phase == 1)[:, None], obj_row_p1, obj_row_p2)
+
+    def refactor(raw_obj):
+        active = status == RUNNING
+        if bounded:
+            return _refactor_bounded_b(T, basis, bst["at_upper"], ub,
+                                       T0_rows, raw_obj, active)
+        return _refactor_b(T, basis, T0_rows, raw_obj, active)
 
     iters_h, any_run = 0, 1
     # The reference refactors at the start of iteration k for
@@ -352,7 +638,7 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
     to_p2 = torch.zeros((Bsz,), dtype=torch.bool, device=dev)
     while any_run and iters_h < max_iters:
         if not phase2_only and iters_h == next_ref:
-            T = _refactor_b(T, basis, T0_rows, obj_rows(), status == RUNNING)
+            T = refactor(obj_rows())
             next_ref += refactor_every
         n_steps = refactor_every if phase2_only else min(
             next_ref - iters_h, _FLIP_CHUNK)
@@ -364,9 +650,15 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
             if kind == "unfused":
                 col_mask = col_mask_p2 if phase2_only else torch.where(
                     (phase == 1)[:, None], col_mask_p1, col_mask_p2)
-            T, basis, optimal, unbounded, active = _step(
-                kind, T, basis, cm1f, cm2f, col_mask, phase, status,
-                use_bland, w, tol, devex)
+            if bounded:
+                T, basis, optimal, unbounded, active = _step_bounded(
+                    kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
+                    use_bland, w, ub, art_mask_ext, tol, devex,
+                    not phase2_only)
+            else:
+                T, basis, optimal, unbounded, active = _step(
+                    kind, T, basis, cm1f, cm2f, col_mask, phase, status,
+                    use_bland, w, tol, devex)
             want_stop = (optimal | unbounded) & running
             if phase2_only:
                 status = torch.where(
@@ -400,26 +692,48 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
             # The reference's phase flip, at the chunk's end: evict the
             # artificials, install the phase-2 objective, and reset the
             # progress state and the Devex framework.
-            T_ev, basis_ev = _evict_artificials_b(T, basis, art_mask_ext,
-                                                  col_mask_p2, tol)
-            T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
-            T = torch.where(to_p2[:, None, None], T_p2, T)
-            basis = torch.where(to_p2[:, None], basis_ev, basis)
+            flip_b = to_p2[:, None]
+            if bounded:
+                T_ev, basis_ev = _evict_artificials_bounded_b(
+                    T, basis, bst["at_upper"], art_mask_ext, col_mask_p2, tol)
+                # Eviction re-bases rows: refresh the carried row state.
+                bl = basis_ev.long()
+                bst["ub_B"] = torch.where(flip_b, ub.gather(1, bl),
+                                          bst["ub_B"])
+                bst["is_art_row"] = torch.where(
+                    flip_b, art_mask_ext.gather(1, bl), bst["is_art_row"])
+                T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
+                # The objective cell with the at-upper terms, which the
+                # price-out cannot know about.
+                _, z_up = _at_upper_terms(bst["at_upper"], ub, obj_row_p2)
+                T_p2[:, -1, -1] = -((obj_row_p2.gather(1, bl)
+                                     * T_p2[:, :-1, -1]).sum(-1) + z_up)
+            else:
+                T_ev, basis_ev = _evict_artificials_b(T, basis, art_mask_ext,
+                                                      col_mask_p2, tol)
+                T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
+            T = torch.where(flip_b[:, :, None], T_p2, T)
+            basis = torch.where(flip_b, basis_ev, basis)
             phase = torch.where(to_p2, 2, phase)
             best_obj = torch.where(to_p2, math.inf, best_obj)
             no_imp = torch.where(to_p2, 0, no_imp)
             if devex:
-                w = torch.where(to_p2[:, None], 1.0, w)
+                w = torch.where(flip_b, 1.0, w)
             to_p2 = torch.zeros_like(to_p2)
         if phase2_only and any_run and iters_h < max_iters:
             # Drift refactor at the chunk boundary, as the reference's
             # outer loop body.
-            T = _refactor_b(T, basis, T0_rows, obj_row_p2, status == RUNNING)
+            T = refactor(obj_row_p2)
 
     # Final polish of x_B and the objective (see the JAX function).
-    T = _refine_solution_b(T, basis, basis0, T0_rows, obj_rows())
+    if bounded:
+        T = _refine_solution_bounded_b(T, basis, basis0, T0_rows, obj_rows(),
+                                       bst["at_upper"], ub)
+    else:
+        T = _refine_solution_b(T, basis, basis0, T0_rows, obj_rows())
     status = torch.where(status == RUNNING, STATUS_ITERATION_LIMIT, status)
-    return T, basis, status, iters_h, pivots
+    return (T, basis, None if bst is None else bst["at_upper"], status,
+            iters_h, pivots)
 
 
 def extract_solution_batch(T, basis, n_vars: int):
@@ -430,3 +744,12 @@ def extract_solution_batch(T, basis, n_vars: int):
     x = torch.sum(torch.where(onehot, rhs[:, :, None], 0.0), dim=1)
     z_min = -T[:, -1, -1]
     return x, z_min
+
+
+def extract_solution_batch_bounded(T, basis, at_upper, ub, n_vars: int):
+    """Decision-variable recovery with bounds: the basic rows' RHS, and the
+    at-upper nonbasic columns at their bound."""
+    x, z_min = extract_solution_batch(T, basis, n_vars)
+    ub_n = ub[:, :n_vars]
+    ub_safe = torch.where(torch.isfinite(ub_n), ub_n, 0.0)
+    return torch.where(at_upper[:, :n_vars], ub_safe, x), z_min

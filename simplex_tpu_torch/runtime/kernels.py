@@ -2,7 +2,8 @@
 
 The kernels live in ``simplex_tpu_torch/csrc/*.cu`` and expose a plain C
 interface.  At first use this module compiles them with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under ``runtime/build/`` (listed in
+(``sm_90a``), one ``nvcc`` process a source, all started together, links
+them into one shared library under ``runtime/build/`` (listed in
 ``.gitignore``) and loads it with ``ctypes``.  The library's file name
 carries a hash of the sources, so an edited source is rebuilt and a stale
 library is never loaded.  Nothing is compiled or loaded at import time.
@@ -22,7 +23,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "runtime", "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources():
@@ -52,24 +53,44 @@ def library_path() -> str:
 def build() -> str:
     """Compile ``csrc/*.cu`` into the shared library unless it exists.
 
-    Returns its path.  The compiler's register/spill report (``-Xptxas -v``)
-    is kept beside it as ``<library>.log``.
+    Returns its path.  The compilers' register/spill reports (``-Xptxas
+    -v``) are kept beside it as ``<library>.log``.
     """
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(out + ".log", "w", encoding="utf-8") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial file
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        jobs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for src, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            log.append(f"== {os.path.basename(src)}\n{stdout}{stderr}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp,
+                               *(obj for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        with open(out + ".log", "w", encoding="utf-8") as f:
+            f.write("".join(log))
+        # Atomic: a concurrent loader never sees a partial file.
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -90,5 +111,14 @@ def library() -> ctypes.CDLL:
         # s, r, optimal, unbounded, did_pivot, col, prow, stream
         fn.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p, real, i32,
                        p, p, p, p, p, p, p, p]
+        fn.restype = i32
+    for name, real in (("k3_fused_pivot_step_bounded_f32", ctypes.c_float),
+                       ("k3_fused_pivot_step_bounded_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        # tab, B, M, N, basis, at_upper, cm1, cm2, phase, status, bland, w,
+        # ub, ub_B, is_art_row, art_mask, tol, devex, with_art, s, r,
+        # optimal, unbounded, moving, scratch, stream
+        fn.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p, p, p, p, p, p,
+                       real, i32, i32, p, p, p, p, p, p, p]
         fn.restype = i32
     return lib

@@ -102,3 +102,42 @@ def ulps(a, b) -> int:
 def z_close(z_ref, z_port) -> bool:
     """The solve-level objective gate: within 1e-6·(1+|z|)."""
     return abs(z_ref - z_port) <= 1e-6 * (1.0 + abs(z_ref))
+
+
+def bounded_lp(seed: int):
+    """``tests/test_bounds.py::_random_bounded_lp`` as LinearProgram keyword
+    arguments: mixed rows that hold at a random point, and per variable one
+    of the bound kinds [0, inf), free, a box, (-inf, u] and [l, inf) with l
+    possibly negative."""
+    rng = np.random.default_rng(seed)
+    m, n = int(rng.integers(3, 9)), int(rng.integers(3, 11))
+    A = rng.normal(size=(m, n)).round(2)
+    x0 = rng.uniform(-1, 3, size=n)
+    ops = rng.choice([-1, 0, 1], size=m, p=[0.6, 0.1, 0.3]).astype(np.int8)
+    slack = rng.uniform(0.1, 1.0, size=m)
+    b = A @ x0 + np.where(ops == -1, slack,
+                          np.where(ops == 1, -slack, 0.0))
+    c = rng.normal(size=n).round(2)
+    kind = rng.integers(0, 5, size=n)
+    lb = np.zeros(n)
+    ub = np.full(n, np.inf)
+    for j in range(n):
+        if kind[j] == 1:
+            lb[j] = -np.inf
+        elif kind[j] == 2:
+            lb[j] = round(x0[j] - rng.uniform(0, 2), 2)
+            ub[j] = round(x0[j] + rng.uniform(0, 2), 2)
+        elif kind[j] == 3:
+            lb[j], ub[j] = -np.inf, round(x0[j] + rng.uniform(0, 2), 2)
+        elif kind[j] == 4:
+            lb[j] = round(x0[j] - rng.uniform(0, 2), 2)
+    return dict(c=c, A=A, b=b, ops=ops, maximize=bool(rng.integers(0, 2)),
+                lb=lb, ub=ub)
+
+
+def random_ub(seed: int, shape, lo: float, hi: float, frac: float = 1.0):
+    """Upper bounds from U(lo, hi) on a ``frac`` share of the entries, +inf
+    on the rest."""
+    rng = np.random.default_rng(seed)
+    ub = rng.uniform(lo, hi, shape)
+    return np.where(rng.random(shape) < frac, ub, np.inf)

@@ -402,15 +402,18 @@ def test_solve_is_deterministic():
 
 
 def test_bounded_batch_raises_naming_slice_3():
+    """A finite ``ub`` no longer raises but solves on the bounded solver
+    (tests/test_torch_bounded.py holds it to the reference), and
+    all-infinite bounds are a classic batch, as in the reference."""
     c, A, b, ops = random_batch(10)
     solver = pt.BatchedSimplexSolver(pt.SolverConfig(device=CPU))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        solver.solve_arrays(c, A, b, ops, maximize=True,
-                            ub=np.full(c.shape, 4.0))
-    # All-infinite bounds are a classic batch, as in the reference.
+    res = solver.solve_arrays(c, A, b, ops, maximize=True,
+                              ub=np.full(c.shape, 4.0))
+    assert (res.status == 0).all() and res.certified.all()
+    assert res.at_upper is not None and res.at_upper.shape == (12, 127)
     res = solver.solve_arrays(c, A, b, ops, maximize=True,
                               ub=np.full(c.shape, np.inf))
-    assert (res.status == 0).all()
+    assert (res.status == 0).all() and res.at_upper is None
 
 
 def test_cuda_device_without_a_card_raises():

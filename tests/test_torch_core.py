@@ -40,7 +40,7 @@ COPIES = ["core/parsing.py", "core/problem.py", "core/presolve.py",
 # The numpy helpers that the port's models/batched.py copies as they are.
 BATCHED_HELPERS = ["_round_up", "BatchResult", "CompiledBatch",
                    "_build_ub_ext", "compile_batch_uniform", "_batch_tol",
-                   "certify_uniform_result"]
+                   "certify_uniform_result", "solve_lp_sweep"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
