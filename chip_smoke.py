@@ -33,7 +33,8 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    twin on the card: eight successive steps, after three twin steps that
    put columns at their upper bounds, on bounded tableaus at 16x128 (mixed
    operators, artificial-exit rows on, f32 and f64), 32x128 (the bounded
-   30x50 batch, B=1024 and B=16384, no artificial columns) and 64x256
+   30x50 batch, B=1024 and B=16384, no artificial columns; B=1024 mixed,
+   artificial-exit rows on, the general driver's shape) and 64x256
    (60x100, mixed), Dantzig and Devex, Bland on half the instances, some
    instances not running; at least one bound flip and one entry from an
    upper bound must happen;
@@ -49,8 +50,8 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
-operations over the float32 peak, whichever is larger; counted from the
-timed step's own data), and the time of one PyTorch call that computes the
+operations over the float32 peak, whichever is larger; counted from what
+the kernel must read and write for the timed step's own outcome), and the time of one PyTorch call that computes the
 same function where there is one.  The line before the last holds the
 card's name and power limit as ``nvidia-smi`` prints them; the line before
 that the kernel record (JSON); the last line is ``{"ok": true, "device":
@@ -110,6 +111,50 @@ def _step_bytes(M, N, itemsize, pivot, flip, state_bytes):
     n_rest = pivot.numel() - n_piv - n_flip
     elems = n_piv * 2 * M * N + n_flip * (N + 3 * M) + n_rest * (N + 2 * M)
     return elems * itemsize + state_bytes
+
+
+def _eligible(torch, T, cm1, cm2, phase, at_upper=None, tol=1e-6):
+    """Per instance, how many columns pricing finds eligible: those whose
+    Devex weight a step that does not pivot must read."""
+    cm = torch.where((phase == 1)[:, None], cm1, cm2)
+    rc = T[:, -1, :]
+    if at_upper is None:
+        return (cm & (rc < -tol)).sum(1)
+    up = torch.cat([at_upper, torch.zeros_like(at_upper[:, :1])], 1)
+    return (cm & torch.where(up, rc > tol, rc < -tol)).sum(1)
+
+
+def _state_bytes(M, N, itemsize, pivot, flip, optimal, eligible, bland,
+                 devex, bounded, art_rows=None):
+    """Bytes of every input but T that one K2 or K3 step must read once and
+    every output it must write once, from this run's outcome (bool tensors
+    over the instances; ``eligible`` from :func:`_eligible`):
+
+    * every instance: phase, status and bland (9 B), the mask of its own
+      phase (N), s, r and the three flags (11 B);
+    * Devex: the weights of the eligible columns, or on a pivot all N
+      lanes read and written;
+    * the basis: the row, for Bland's tie (not optimal); else basis[r] on
+      a pivot (the leaving column: Devex in K2, at_upper in K3); basis[r]
+      written on a pivot;
+    * bounded (K3): at_upper read (N-1), ub[s], ub_B read (M-1); on a pivot
+      ub_B[r] and at_upper of the leaving and the entering column written;
+      on a flip at_upper[s];
+    * ``art_rows`` (K3 with ``with_art``: the phase-2 instances) is_art_row
+      read (M-1); on a pivot art_mask[s] read and is_art_row[r] written.
+    """
+    R = M - 1
+    piv, flp = pivot.long(), flip.long()
+    per = 9 + N + 11 + 4 * piv
+    if devex:
+        per = per + itemsize * (eligible * (1 - piv) + 2 * N * piv)
+    leaving = 4 * piv if devex or bounded else 0 * piv
+    per = per + (bland & ~optimal).long() * (4 * R - leaving) + leaving
+    if bounded:
+        per = per + (N - 1) + itemsize * (1 + R) + (itemsize + 2) * piv + flp
+    if art_rows is not None:
+        per = per + R * art_rows.long() + 2 * piv
+    return int(per.sum())
 
 
 def _time_ms(fn, warmup=3, reps=20):
@@ -439,10 +484,12 @@ def phase_k2_timing(torch, bk, compile_batch_uniform, gpu):
         T.copy_(T0)
         basis.copy_(basis0)
         w.fill_(1.0)
-        did = bk.fused_pivot_step_(*args, devex=True)[7]
-        state = B * (2 * (M - 1) * 4 + 2 * N + 2 * 4 + 1 + 2 * N * 4
-                     + 2 * 4 + 3)
-        step_bytes = _step_bytes(M, N, 4, did, torch.zeros_like(did), state)
+        elig = _eligible(torch, T, cm, cm, phase)
+        res = bk.fused_pivot_step_(*args, devex=True)
+        did, no_flip = res[7], torch.zeros_like(res[7])
+        state = _state_bytes(M, N, 4, did, no_flip, res[5], elig, bland,
+                             devex=True, bounded=False)
+        step_bytes = _step_bytes(M, N, 4, did, no_flip, state)
         b_ms, b_by = _bound_ms(step_bytes, 2 * M * N * int(did.sum()))
         resident = ", L2-resident: the bound assumes HBM" \
             if B * M * N * 4 < 50e6 else ""
@@ -625,6 +672,7 @@ def phase_k3(torch, bk, compile_batch_uniform):
     dev = torch.device("cuda")
     cases = [(16, 9, 13, True, np.float32), (16, 9, 13, True, np.float64),
              (1024, 30, 50, False, np.float32),
+             (1024, 30, 50, True, np.float32),   # the general driver's shape
              (16384, 30, 50, False, np.float32),
              (64, 60, 100, True, np.float32)]
     worst = 0.0
@@ -727,16 +775,14 @@ def phase_k3_timing(torch, bk, compile_batch_uniform, gpu):
         c_ms = timed(lambda: dst.copy_(st.T))
         for name in BoundedState.STATE:
             getattr(st, name).copy_(getattr(first, name))
+        elig = _eligible(torch, st.T, st.cm1, st.cm2, st.phase, st.at_upper)
         res = bk.fused_pivot_step_bounded_(*st.args(), **kw)
         moving = res[10]
         flip = moving & (st.basis == first.basis).all(1)
         pivot = moving & ~flip
-        # Every other input read once, every output written once: basis,
-        # at_upper, w, ub_B, is_art_row in and out; cm1, cm2, phase,
-        # status, bland, ub, art_mask in; s, r and three flags out.
-        state = B * (2 * (M - 1) * 4 + 2 * (N - 1) + 2 * N * 4
-                     + 2 * (M - 1) * 4 + 2 * (M - 1) + 2 * N + 2 * 4 + 1
-                     + (N - 1) * 4 + N + 2 * 4 + 3)
+        # with_art is off: no art-exit rows, so no is_art_row or art_mask.
+        state = _state_bytes(M, N, 4, pivot, flip, res[8], elig, bland,
+                             devex=True, bounded=True)
         step_bytes = _step_bytes(M, N, 4, pivot, flip, state)
         b_ms, b_by = _bound_ms(step_bytes, 2 * M * N * int(pivot.sum()))
         nbytes = 2 * B * M * N * 4
