@@ -9,10 +9,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    CUDA device is a failure (there is no CPU path here);
 2. build: compiles the port's CUDA kernels from ``simplex_tpu_torch/csrc``;
 3. K1 (``csrc/pivot_update.cu``) against its plain PyTorch twin on the card
-   at (257, 300), (2304, 4608) (the tableau of the 2048 x 2048 dense LP)
-   and (10240, 10240), then timed against the twin with CUDA events;
+   at (257, 300), (2304, 4608) (the tableau of the 2048 x 2048 dense LP),
+   (10240, 10240) and (10241, 10241) (the pivot-rate tableau, whose odd
+   width takes K1's scalar path), then timed against the twin with CUDA
+   events;
 4. the report path: the CLI (``simplex_tpu_torch.cli``) on the three
-   anchor problems, checked against their known optima;
+   anchor problems, checked against their known optima, each leaving one
+   solve record in ``utils/profiling.DEFAULT_METRICS``;
 5. the main path at full size: ``simplex_tpu_torch.solve_lp`` on the
    2048 x 2048 dense LP of ``bench.py::bench_dense_solve``, checked against
    HiGHS, with the K1 launch count of that run;
@@ -46,7 +49,18 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     K3 launch count of that run, its stages on the host clock and one run
     under ``torch.profiler``; then a 1024 x (30x50) bounded batch with
     mixed rows through the two-phase loop and a ``solve_lp_sweep`` of 256
-    LPs with general bounds, every verdict against HiGHS.
+    LPs with general bounds, every verdict against HiGHS;
+12. K4 (``csrc/stream_copy.cu``) against its plain PyTorch twin on the
+    card, bit for bit: in place and out of place, f32 and f64, at 10241^2,
+    10304 x 10368, 16384 x 32 x 128 and 257 x 300, and on a view one
+    element into each;
+13. K4, its twin and torch's ``add_`` / ``add(out=)`` timed in both modes
+    at 10241^2 and 16384 x 32 x 128; then the pivot-rate path,
+    ``utils/pivot_bench.bench_pivot_update(10240, 64, 5)`` (K1 chained 64
+    times on the 10241^2 tableau against four streaming ceilings, two of
+    them K4's), with its K1 and K4 launch counts and its whole ``detail``
+    on one line; then every kernel's time against its bound at 3.35 TB/s
+    and against the same bytes at K4's measured in-place ceiling.
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
@@ -189,7 +203,7 @@ def phase_k1(torch, pivot_kernel):
         return torch.full((), v, dtype=torch.bool, device=dev)
 
     worst = 0.0
-    for R, W in [(257, 300), (2304, 4608), (10240, 10240)]:
+    for R, W in [(257, 300), (2304, 4608), (10240, 10240), (10241, 10241)]:
         T0 = torch.randn((R, W), generator=gen, device=dev)
         T0[:, -1] = T0[:, -1].abs()
         T0[1, -1] = -1e-3            # a negative RHS lane for the clamp
@@ -227,11 +241,12 @@ def phase_k1_timing(torch, pivot_kernel, gpu):
     """ms per pivot of K1, of its twin, of torch's own copy (the card's
     streaming yardstick) and of ``addr_``, the one PyTorch call closest to
     K1's function (``T - col (outer) prow``, without K1's row and column
-    writes and the RHS clamp); returns (kernel_ms, twin_ms, addr_ms,
-    bound_ms, bound_by) at 10240^2."""
+    writes and the RHS clamp); returns {(R, W): (kernel_ms, twin_ms,
+    addr_ms, bound_ms, bound_by)}.  10241^2 is the pivot-rate tableau,
+    whose odd width takes K1's scalar path."""
     dev = torch.device("cuda")
     out = {}
-    for R, W in [(2304, 4608), (10240, 10240)]:
+    for R, W in [(2304, 4608), (10240, 10240), (10241, 10241)]:
         T = torch.randn((R, W), device=dev)
         dst = torch.empty_like(T)
         r = torch.full((), R // 2, dtype=torch.int64, device=dev)
@@ -255,7 +270,7 @@ def phase_k1_timing(torch, pivot_kernel, gpu):
             f"bound {b_ms!r} ms ({b_by}){resident}")
         out[(R, W)] = (k_ms, p_ms, a_ms, b_ms, b_by)
         del T, dst, col, prow
-    return out[(10240, 10240)]
+    return out
 
 
 def phase_cli(cli, storage_mod, tmpdir):
@@ -1050,6 +1065,133 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
     return k3_launches
 
 
+K4_SHAPES = [(10241, 10241),      # the pivot-rate tableau, (size+1)^2
+             (10304, 10368),      # bench.py's tile-rounded copy shape
+             (16384, 32, 128),    # K2's and K3's batched tableau
+             (257, 300)]
+
+
+def phase_k4(torch, sk):
+    """K4 against its twin, bit for bit: in place and out of place, f32
+    and f64, at ``K4_SHAPES``, and on a view one element into each (out of
+    place into an aligned buffer: every element on the scalar loop; in
+    place: the scalar head and tail around the vectors).  Values span
+    1e-9..1e3, so the add rounds every way.  Returns the worst absolute
+    difference (0.0 when every check holds)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for shape in K4_SHAPES:
+            scale = 10.0 ** torch.randint(-9, 4, shape, generator=gen,
+                                          device=dev).to(dtype)
+            x0 = torch.randn(shape, generator=gen, device=dev,
+                             dtype=dtype) * scale
+            del scale
+            ref = sk.stream_copy_ref(x0.clone())
+            got = sk.stream_copy_(x0.clone())
+            out = sk.stream_copy_(x0, out=torch.empty_like(x0))
+            torch.cuda.synchronize()
+            where = f"{'x'.join(map(str, shape))} {dtype}"
+            check(not torch.equal(ref, x0), f"the twin did nothing, {where}")
+            check(torch.equal(got, ref), f"K4 in place differs, {where}")
+            check(torch.equal(out, ref), f"K4 out of place differs, {where}")
+            worst = max(worst, float((got - ref).abs().max()),
+                        float((out - ref).abs().max()))
+            del got, out
+            flat = x0.view(-1)
+            first = flat[:1].clone()
+            view = flat[1:]
+            ref = sk.stream_copy_ref(view.clone())
+            apart = sk.stream_copy_(view, out=torch.empty_like(view))
+            sk.stream_copy_(view)
+            torch.cuda.synchronize()
+            check(torch.equal(apart, ref),
+                  f"K4 out of place on a view one element in, {where}")
+            check(torch.equal(view, ref),
+                  f"K4 in place on a view one element in, {where}")
+            check(torch.equal(flat[:1], first),
+                  f"K4 wrote before the view, {where}")
+            log(f"[k4] {where}: equal to the twin bit for bit, in place and "
+                f"out of place, and on a view one element in "
+                f"({view.numel()} elements)")
+            del x0, ref, apart, flat, view
+    return worst
+
+
+def phase_k4_timing(torch, sk, gpu):
+    """ms a pass of K4, its twin and torch's own ``add_`` / ``add(out=)``,
+    in place and out of place, f32, at the pivot-rate tableau and at K2's
+    and K3's batched tableau (both beyond the 50 MB L2); bound: one read
+    and one write an element.  Returns {shape: {name: ms}, plus the bound
+    and what bounds it}."""
+    dev = torch.device("cuda")
+    out = {}
+    for shape in [(10241, 10241), (16384, 32, 128)]:
+        x = torch.randn(shape, device=dev)
+        y = torch.empty_like(x)
+        nbytes = 2 * x.numel() * 4
+        check(nbytes / 2 > 50e6, f"{shape} would be L2-resident")
+        t = {}
+        # In turns, library then kernel, so a drift hits both.
+        t["add_"] = _time_ms(lambda: x.add_(1e-7))
+        t["k4_in"] = _time_ms(lambda: sk.stream_copy_(x))
+        t["add_out"] = _time_ms(lambda: torch.add(x, 1e-7, out=y))
+        t["k4_out"] = _time_ms(lambda: sk.stream_copy_(x, out=y))
+        t["twin_in"] = _time_ms(lambda: sk.stream_copy_ref(x))
+        t["twin_out"] = _time_ms(lambda: sk.stream_copy_ref(x, out=y))
+        b_ms, b_by = _bound_ms(nbytes, x.numel())
+        t["bound"], t["bound_by"] = b_ms, b_by
+        name = "x".join(map(str, shape))
+        log(f"[k4-time] {name} f32 on {gpu}: " + ", ".join(
+            f"{k} {t[k]!r} ms ({nbytes / t[k] / 1e6!r} GB/s, "
+            f"{b_ms / t[k]!r} of the bound)"
+            for k in ("k4_in", "k4_out", "twin_in", "twin_out", "add_",
+                      "add_out"))
+            + f"; bound {b_ms!r} ms ({b_by}, {nbytes} B); K4 out/in "
+            f"{t['k4_out'] / t['k4_in']!r}")
+        out[shape] = t
+        del x, y
+    return out
+
+
+def phase_pivot_rate(torch, pivot_kernel, sk, gpu):
+    """The pivot-rate path through its entry point: returns its detail
+    and the K4 launches it made (its K1 launches are checked here)."""
+    from simplex_tpu_torch.utils.pivot_bench import bench_pivot_update
+
+    size, iters, reps = 10240, 64, 5
+    pivot_kernel.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bench_pivot_update(size, iters, reps)
+    wall = time.perf_counter() - t0
+    k1, k4 = pivot_kernel.LAUNCHES, sk.LAUNCHES
+    d = res["detail"]
+    # A warm-up chain and `reps` timed ones; K4 in place and ping-pong.
+    check(k1 == iters * (reps + 1),
+          f"the pivot chains launched K1 {k1}x, not {iters * (reps + 1)}")
+    check(k4 == 2 * iters * (reps + 1),
+          f"the K4 streams launched K4 {k4}x, not {2 * iters * (reps + 1)}")
+    check(res["tableau"].shape == (size + 1, size + 1)
+          and res["basis"].shape == (size,), "pivot-rate state shapes")
+    check(d["device"] == torch.cuda.get_device_name(0), "detail.device")
+    for key in ("per_pivot_ms", "empirical_stream_GBps",
+                "xla_outofplace_GBps", "k4_stream_GBps",
+                "k4_outofplace_GBps"):
+        check(d[key] > 0 and np.isfinite(d[key]), f"detail.{key}={d[key]}")
+    n_nonfinite = int((~torch.isfinite(res["tableau"])).sum())
+    log(f"[pivot-rate] bench_pivot_update({size}, {iters}, {reps}) on "
+        f"{gpu}: {res['value']!r} pivots/s, vs_baseline "
+        f"{res['vs_baseline']!r}, K1 launches {k1}, K4 launches {k4}, "
+        f"{n_nonfinite} non-finite entries in the final tableau, wall "
+        f"{wall!r} s")
+    log("[pivot-rate] detail " + json.dumps(d))
+    del res
+    return d, k4
+
+
 def main():
     import torch
 
@@ -1064,8 +1206,10 @@ def main():
     from simplex_tpu_torch.models.batched import compile_batch_uniform
     from simplex_tpu_torch.ops import batched_kernel as bk
     from simplex_tpu_torch.ops import pivot_kernel
+    from simplex_tpu_torch.ops import stream_kernel as sk
     from simplex_tpu_torch.runtime import kernels
     from simplex_tpu_torch.services import storage as storage_mod
+    from simplex_tpu_torch.utils import profiling
 
     # 1. environment
     gpu = _gpu_line()
@@ -1086,14 +1230,21 @@ def main():
 
     # 3. K1 against its twin, then timed
     max_err = phase_k1(torch, pivot_kernel)
-    k_ms, p_ms, a_ms, k1_bound, k1_by = phase_k1_timing(torch, pivot_kernel,
-                                                         gpu)
+    k1_times = phase_k1_timing(torch, pivot_kernel, gpu)
+    k_ms, p_ms, a_ms, k1_bound, k1_by = k1_times[(10240, 10240)]
 
-    # 4. report path through the CLI
+    # 4. report path through the CLI, each report logging its solve record
     pivot_kernel.LAUNCHES = 0
+    profiling.DEFAULT_METRICS.records.clear()
     phase_cli(cli, storage_mod, tmp.name)
     log(f"[cli] K1 launches over the three reports: {pivot_kernel.LAUNCHES}")
     check(pivot_kernel.LAUNCHES >= 1, "the report path launched K1 no time")
+    recs = profiling.DEFAULT_METRICS.records
+    check(len(recs) == 3 and all(r.engine == "dense" and r.status == 0
+                                 and r.n_vars == 2 for r in recs),
+          f"the CLI left {len(recs)} solve records, not three optimal ones")
+    log(f"[cli] solve records: {[r.to_json() for r in recs]}; summary "
+        f"{profiling.DEFAULT_METRICS.summary()}")
 
     # 5. the main path at full size
     launches = phase_solve(torch, pt, pivot_kernel, gpu)
@@ -1115,9 +1266,46 @@ def main():
 
     # 11. the bounded path at full width
     k3_launches = phase_bounded(torch, pt, bk, gpu)
+
+    # 12. K4 against its twin, 13. timed, the pivot-rate path, and every
+    # kernel's share restated against K4's measured in-place ceiling
+    t_k4 = time.perf_counter()
+    k4_err = phase_k4(torch, sk)
+    k4_times = phase_k4_timing(torch, sk, gpu)
+    detail, k4_launches = phase_pivot_rate(torch, pivot_kernel, sk, gpu)
+    k4 = k4_times[(10241, 10241)]
+    # The ceiling is K4's chain of 64 launches in the pivot-rate run: a
+    # single launch timed from an idle card (phase 13) also carries the
+    # wrapper's host latency.
+    ceiling = detail["k4_stream_GBps"]
+    single = 2 * 10241 * 10241 * 4 / k4["k4_in"] / 1e6
+    log(f"[ceiling] K4 in place at 10241^2, chained: {ceiling!r} GB/s = "
+        f"{ceiling / (HBM_BYTES_PER_S / 1e9)!r} of the published "
+        f"{HBM_BYTES_PER_S / 1e9!r} GB/s (one launch: {single!r} GB/s; "
+        f"chained out of place {detail['k4_outofplace_GBps']!r} GB/s; "
+        f"torch add_ {detail['empirical_stream_GBps']!r}, add(out=) "
+        f"{detail['xla_outofplace_GBps']!r} GB/s)")
+    rows = [("K1 10240^2", k_ms, k1_bound, k1_by),
+            ("K1 10241^2 (scalar path)", *(k1_times[(10241, 10241)][i]
+                                           for i in (0, 3, 4))),
+            ("K2 B=16384", k2_ms, k2_bound, k2_by),
+            ("K3 B=16384", k3_ms, k3_bound, k3_by),
+            ("K4 10241^2 in place", k4["k4_in"], k4["bound"],
+             k4["bound_by"]),
+            ("K4 16384x32x128 in place",
+             k4_times[(16384, 32, 128)]["k4_in"],
+             k4_times[(16384, 32, 128)]["bound"],
+             k4_times[(16384, 32, 128)]["bound_by"])]
+    for name, ms, b_ms, b_by in rows:
+        nbytes = b_ms * HBM_BYTES_PER_S / 1e3
+        at_ceiling = nbytes / (ceiling * 1e6)
+        log(f"[share] {name} on {gpu}: {ms!r} ms; bound {b_ms!r} ms "
+            f"({b_by}) = {b_ms / ms!r} of it at 3.35 TB/s; at K4's "
+            f"measured ceiling the same bytes take {at_ceiling!r} ms = "
+            f"{at_ceiling / ms!r} of it")
     t_end = time.perf_counter()
-    log(f"[done] phases 1-11 in {t_end - t_start!r} s, of which phases "
-        f"9-11 {t_end - t_k3!r} s")
+    log(f"[done] phases 1-13 in {t_end - t_start!r} s, of which phases "
+        f"9-11 {t_k4 - t_k3!r} s and 12-13 {t_end - t_k4!r} s")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",
@@ -1155,6 +1343,18 @@ def main():
         "bound_ms": k3_bound,
         "bound_by": k3_by,
         "library_ms": None,
+    }, {
+        "name": "K4 stream_copy",
+        "route": "cuda",
+        "source": "simplex_tpu_torch/csrc/stream_copy.cu",
+        "replaces": "bench.py:229",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": k4["k4_in"],
+        "plain_ms": k4["twin_in"],
+        "bound_ms": k4["bound"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["add_"],
     }]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ padded shape (``BatchedSimplexSolver``, ``solve_lp_batch``), whose pivot
 step runs through the fused kernel K2, ``csrc/fused_pivot_step.cu``, or,
 with native upper bounds (``solve_arrays(ub=...)``, ``solve_lp_sweep``),
 through the bounded kernel K3, ``csrc/fused_pivot_step_bounded.cu``.  The
-package imports torch, numpy and scipy and never JAX, so it runs on a
+pivot-rate measurement (``utils/pivot_bench.py``) holds K1 against the
+card's streaming ceiling, measured by the copy kernel K4,
+``csrc/stream_copy.cu``; ``utils/profiling.py`` keeps the solve records.
+The package imports torch, numpy and scipy and never JAX, so it runs on a
 machine without JAX.
 """
 __version__ = "0.1.0"

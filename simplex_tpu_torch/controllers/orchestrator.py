@@ -1,9 +1,8 @@
 """Solve orchestration: problem dict → full report (port of
 ``simplex_tpu/controllers/orchestrator.py``; same report schema, solved by
-the port's ``solve_lp`` on ``config.device``).
-
-The JAX package's ``/metrics`` solve record (``utils/profiling``) is not
-ported yet.  The original module's description follows.
+the port's ``solve_lp`` on ``config.device``).  Every report logs one
+``utils/profiling.SolveRecord`` in ``DEFAULT_METRICS``, as the JAX module
+does.  The original module's description follows.
 
 Plays the role of the reference's ``SolverController``
 (``app/controllers/solver_controller.py:53-120``): loads the
@@ -33,6 +32,7 @@ from ..models.dense import SimplexResult, solve_lp
 from ..services import history as history_svc
 from ..services import viz as viz_svc
 from ..services.storage import StorageService
+from ..utils.profiling import DEFAULT_METRICS, SolveRecord
 
 STATUS_FEASIBLE_STR = "Solucion Factible"
 STATUS_INFEASIBLE_STR = "Sin Solucion Factible"
@@ -73,6 +73,12 @@ class SolverOrchestrator:
         report = self._assemble_report(result, viz_html, tables)
         if self.save:
             self.storage.save_solution(report)
+
+        DEFAULT_METRICS.log(SolveRecord(
+            engine="dense", n_vars=self.lp.n_vars, n_cons=self.lp.n_cons,
+            status=result.status, iterations=result.nit,
+            wall_s=result.solve_time,
+        ))
         return report
 
     # ------------------------------------------------------------------ #

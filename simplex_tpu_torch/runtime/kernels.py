@@ -121,4 +121,9 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p, p, p, p, p, p,
                        real, i32, i32, p, p, p, p, p, p, p]
         fn.restype = i32
+    for name in ("k4_stream_copy_f32", "k4_stream_copy_f64"):
+        fn = getattr(lib, name)
+        # x, out, numel, stream
+        fn.argtypes = [p, p, i64, p]
+        fn.restype = i32
     return lib

@@ -23,6 +23,9 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.ops.batched_kernel\n"
             "import simplex_tpu_torch.controllers.orchestrator\n"
             "import simplex_tpu_torch.runtime.kernels\n"
+            "import simplex_tpu_torch.ops.stream_kernel\n"
+            "import simplex_tpu_torch.utils.profiling\n"
+            "import simplex_tpu_torch.utils.pivot_bench\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'simplex_tpu' or m.startswith('simplex_tpu.')]\n"
