@@ -8,11 +8,15 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 1. environment: the card (``nvidia-smi``), torch and CUDA versions; no
    CUDA device is a failure (there is no CPU path here);
 2. build: compiles the port's CUDA kernels from ``simplex_tpu_torch/csrc``;
-3. K1 (``csrc/pivot_update.cu``) against its plain PyTorch twin on the card
-   at (257, 300), (2304, 4608) (the tableau of the 2048 x 2048 dense LP),
-   (10240, 10240) and (10241, 10241) (the pivot-rate tableau, whose odd
-   width takes K1's scalar path), then timed against the twin with CUDA
-   events;
+3. K1 (``csrc/pivot_update.cu``, on the streaming skeleton
+   ``csrc/stream_common.cuh`` it shares with K4) against its plain PyTorch
+   twin on the card, f32 and f64, at (257, 300), (257, 301), (2304, 4608)
+   (the tableau of the 2048 x 2048 dense LP), (10240, 10240) and
+   (10241, 10241) (the pivot-rate tableau, whose rows start off the 16-byte
+   boundary), and on views whose base lies one element past a 16-byte
+   boundary; then timed at 2304 x 4608, 10240^2 and 10241^2, one launch
+   and chained (64 launches between two CUDA events), against its twin,
+   torch's ``copy_`` and ``addr_`` (chained too, in turns with K1);
 4. the report path: the CLI (``simplex_tpu_torch.cli``) on the three
    anchor problems, checked against their known optima, each leaving one
    solve record in ``utils/profiling.DEFAULT_METRICS``;
@@ -189,9 +193,37 @@ def _time_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+def _chain_ms(torch, fn, n=64, reps=5):
+    """``fn`` launched ``n`` times back to back between two CUDA events,
+    ``reps`` times after one warm-up chain: the ms a launch of each chain,
+    and the host's enqueue ms a launch (where that reaches the device time,
+    the chain is bound by the host)."""
+    fn()
+    dev, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / n)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end) / n)
+    return dev, host
+
+
+K1_SHAPES = [(257, 300), (257, 301), (2304, 4608), (10240, 10240),
+             (10241, 10241)]
+# (shape, elements the base lies past a 16-byte boundary)
+K1_VIEWS = [((257, 301), 1), ((2304, 4608), 1)]
+
+
 def phase_k1(torch, pivot_kernel):
-    """K1 against its twin at the main path's shapes; returns the worst
-    absolute difference seen."""
+    """K1 against its twin at the main path's shapes and on views whose
+    base is off a 16-byte boundary, f32 and f64; returns the worst absolute
+    difference seen."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -202,38 +234,51 @@ def phase_k1(torch, pivot_kernel):
     def flag(v):
         return torch.full((), v, dtype=torch.bool, device=dev)
 
+    def placed(T0, offset):
+        """A copy of T0 as a view ``offset`` elements into its buffer."""
+        buf = torch.empty(T0.numel() + offset, dtype=T0.dtype, device=dev)
+        view = buf[offset:].view(T0.shape)
+        view.copy_(T0)
+        return view
+
     worst = 0.0
-    for R, W in [(257, 300), (2304, 4608), (10240, 10240), (10241, 10241)]:
-        T0 = torch.randn((R, W), generator=gen, device=dev)
-        T0[:, -1] = T0[:, -1].abs()
-        T0[1, -1] = -1e-3            # a negative RHS lane for the clamp
-        tmax = float(T0.abs().max())
-        shape_err = 0.0
-        for clamp in (False, True):
-            for r, s in [(0, 0), (1, 1), (R // 2, W // 3), (R - 1, W - 2)]:
-                got = T0.clone()
-                pivot_kernel.pivot_update_(got, idx(r), idx(s), flag(True),
-                                           clamp_rhs=clamp)
-                ref = pivot_kernel.pivot_update_ref(T0.clone(), idx(r),
-                                                    idx(s), flag(True),
-                                                    clamp_rhs=clamp)
-                torch.cuda.synchronize()
-                shape_err = max(shape_err, float((got - ref).abs().max()))
-                torch.testing.assert_close(got, ref, rtol=1e-6,
-                                           atol=1e-6 * tmax)
-                check(torch.equal(got[r], ref[r]),
-                      f"K1 row {r} differs at {R}x{W}")
-                check(torch.equal(got[:, s], ref[:, s]),
-                      f"K1 column {s} differs at {R}x{W}")
-        same = T0.clone()
-        pivot_kernel.pivot_update_(same, idx(3), idx(4), flag(False),
-                                   clamp_rhs=True)
-        torch.cuda.synchronize()
-        check(torch.equal(same, T0), f"do_pivot=0 changed T at {R}x{W}")
-        log(f"[k1] {R}x{W}: matches twin (clamp on/off, 4 pivots, "
-            f"do_pivot=0 no-op), max_abs_err={shape_err!r}")
-        worst = max(worst, shape_err)
-        del T0, got, ref, same
+    cases = [(shape, 0) for shape in K1_SHAPES] + K1_VIEWS
+    for dtype in (torch.float32, torch.float64):
+        for (R, W), offset in cases:
+            T0 = torch.randn((R, W), generator=gen, device=dev, dtype=dtype)
+            T0[:, -1] = T0[:, -1].abs()
+            T0[1, -1] = -1e-3            # a negative RHS lane for the clamp
+            tmax = float(T0.abs().max())
+            where = f"{R}x{W} {dtype}" + (f", base {offset} element(s) "
+                                           f"past 16 B" if offset else "")
+            shape_err = 0.0
+            for clamp in (False, True):
+                for r, s in [(0, 0), (1, 1), (R // 2, W // 3),
+                             (R - 1, W - 2)]:
+                    got = placed(T0, offset)
+                    pivot_kernel.pivot_update_(got, idx(r), idx(s),
+                                               flag(True), clamp_rhs=clamp)
+                    ref = pivot_kernel.pivot_update_ref(
+                        T0.clone(), idx(r), idx(s), flag(True),
+                        clamp_rhs=clamp)
+                    torch.cuda.synchronize()
+                    shape_err = max(shape_err,
+                                    float((got - ref).abs().max()))
+                    torch.testing.assert_close(got, ref, rtol=1e-6,
+                                               atol=1e-6 * tmax)
+                    check(torch.equal(got[r], ref[r]),
+                          f"K1 row {r} differs at {where}")
+                    check(torch.equal(got[:, s], ref[:, s]),
+                          f"K1 column {s} differs at {where}")
+            same = placed(T0, offset)
+            pivot_kernel.pivot_update_(same, idx(3), idx(4), flag(False),
+                                       clamp_rhs=True)
+            torch.cuda.synchronize()
+            check(torch.equal(same, T0), f"do_pivot=0 changed T at {where}")
+            log(f"[k1] {where}: matches twin (clamp on/off, 4 pivots, "
+                f"do_pivot=0 no-op), max_abs_err={shape_err!r}")
+            worst = max(worst, shape_err)
+            del T0, got, ref, same
     return worst
 
 
@@ -241,9 +286,11 @@ def phase_k1_timing(torch, pivot_kernel, gpu):
     """ms per pivot of K1, of its twin, of torch's own copy (the card's
     streaming yardstick) and of ``addr_``, the one PyTorch call closest to
     K1's function (``T - col (outer) prow``, without K1's row and column
-    writes and the RHS clamp); returns {(R, W): (kernel_ms, twin_ms,
-    addr_ms, bound_ms, bound_by)}.  10241^2 is the pivot-rate tableau,
-    whose odd width takes K1's scalar path."""
+    writes and the RHS clamp): one launch (median of 20) and chained (64
+    launches between two events, five chains; ``addr_``, K1, K1, ``addr_``
+    in turns, the two chains of each pooled).  Returns {(R, W): dict}.
+    10241^2 is the pivot-rate tableau, whose rows start off the 16-byte
+    boundary."""
     dev = torch.device("cuda")
     out = {}
     for R, W in [(2304, 4608), (10240, 10240), (10241, 10241)]:
@@ -252,23 +299,43 @@ def phase_k1_timing(torch, pivot_kernel, gpu):
         r = torch.full((), R // 2, dtype=torch.int64, device=dev)
         s = torch.full((), W // 3, dtype=torch.int64, device=dev)
         go = torch.full((), True, dtype=torch.bool, device=dev)
-        nbytes = 2 * R * W * 4
-        k_ms = _time_ms(lambda: pivot_kernel.pivot_update_(
-            T, r, s, go, clamp_rhs=True))
-        p_ms = _time_ms(lambda: pivot_kernel.pivot_update_ref(
-            T, r, s, go, clamp_rhs=True))
-        c_ms = _time_ms(lambda: dst.copy_(T))
         col, prow = T[:, W // 3].clone(), T[R // 2].clone()
-        a_ms = _time_ms(lambda: T.addr_(col, prow, alpha=-1.0))
-        b_ms, b_by = _bound_ms(nbytes, 2 * R * W)
+        nbytes = 2 * R * W * 4
+
+        def k1():
+            pivot_kernel.pivot_update_(T, r, s, go, clamp_rhs=True)
+
+        def addr():
+            T.addr_(col, prow, alpha=-1.0)
+
+        t = {"one": _time_ms(k1),
+             "twin": _time_ms(lambda: pivot_kernel.pivot_update_ref(
+                 T, r, s, go, clamp_rhs=True)),
+             "copy_": _time_ms(lambda: dst.copy_(T)),
+             "addr_one": _time_ms(addr)}
+        a1, ah1 = _chain_ms(torch, addr)
+        k1a, kh1 = _chain_ms(torch, k1)
+        k1b, kh2 = _chain_ms(torch, k1)
+        a2, ah2 = _chain_ms(torch, addr)
+        t["chain"] = statistics.median(k1a + k1b)
+        t["chain_spread"] = (max(k1a + k1b) - min(k1a + k1b)) / t["chain"]
+        t["host"] = statistics.median(kh1 + kh2)
+        t["addr_chain"] = statistics.median(a1 + a2)
+        t["addr_host"] = statistics.median(ah1 + ah2)
+        t["bound"], t["bound_by"] = _bound_ms(nbytes, 2 * R * W)
         resident = (f" ({nbytes / 2e6} MB: L2-resident, the bound "
                     f"assumes HBM)") if nbytes / 2 < 50e6 else ""
-        log(f"[k1-time] {R}x{W} f32 on {gpu}: K1 {k_ms!r} ms/pivot "
-            f"({nbytes / k_ms / 1e6!r} GB/s at 2*R*W*4 B), twin "
-            f"{p_ms!r} ms/pivot, torch copy_ {c_ms!r} ms "
-            f"({nbytes / c_ms / 1e6!r} GB/s), torch addr_ {a_ms!r} ms; "
-            f"bound {b_ms!r} ms ({b_by}){resident}")
-        out[(R, W)] = (k_ms, p_ms, a_ms, b_ms, b_by)
+        log(f"[k1-time] {R}x{W} f32 on {gpu}: K1 one launch {t['one']!r} "
+            f"ms, chained {t['chain']!r} ms/pivot (spread "
+            f"{t['chain_spread']!r}; host enqueue {t['host']!r} ms a "
+            f"launch; {nbytes / t['chain'] / 1e6!r} GB/s at 2*R*W*4 B); "
+            f"torch addr_ one launch {t['addr_one']!r} ms, chained "
+            f"{t['addr_chain']!r} ms (host enqueue {t['addr_host']!r} ms); "
+            f"K1/addr_ chained {t['chain'] / t['addr_chain']!r}; twin "
+            f"{t['twin']!r} ms/pivot, torch copy_ {t['copy_']!r} ms "
+            f"({nbytes / t['copy_'] / 1e6!r} GB/s); bound {t['bound']!r} ms "
+            f"({t['bound_by']}){resident}")
+        out[(R, W)] = t
         del T, dst, col, prow
     return out
 
@@ -1231,7 +1298,7 @@ def main():
     # 3. K1 against its twin, then timed
     max_err = phase_k1(torch, pivot_kernel)
     k1_times = phase_k1_timing(torch, pivot_kernel, gpu)
-    k_ms, p_ms, a_ms, k1_bound, k1_by = k1_times[(10240, 10240)]
+    k1 = k1_times[(10240, 10240)]
 
     # 4. report path through the CLI, each report logging its solve record
     pivot_kernel.LAUNCHES = 0
@@ -1285,17 +1352,17 @@ def main():
         f"chained out of place {detail['k4_outofplace_GBps']!r} GB/s; "
         f"torch add_ {detail['empirical_stream_GBps']!r}, add(out=) "
         f"{detail['xla_outofplace_GBps']!r} GB/s)")
-    rows = [("K1 10240^2", k_ms, k1_bound, k1_by),
-            ("K1 10241^2 (scalar path)", *(k1_times[(10241, 10241)][i]
-                                           for i in (0, 3, 4))),
-            ("K2 B=16384", k2_ms, k2_bound, k2_by),
-            ("K3 B=16384", k3_ms, k3_bound, k3_by),
-            ("K4 10241^2 in place", k4["k4_in"], k4["bound"],
-             k4["bound_by"]),
-            ("K4 16384x32x128 in place",
-             k4_times[(16384, 32, 128)]["k4_in"],
-             k4_times[(16384, 32, 128)]["bound"],
-             k4_times[(16384, 32, 128)]["bound_by"])]
+    # K1 chained, so its share does not carry one launch's host latency.
+    rows = [(f"K1 {R}x{W} chained", t["chain"], t["bound"], t["bound_by"])
+            for (R, W), t in k1_times.items()]
+    rows += [("K2 B=16384", k2_ms, k2_bound, k2_by),
+             ("K3 B=16384", k3_ms, k3_bound, k3_by),
+             ("K4 10241^2 in place", k4["k4_in"], k4["bound"],
+              k4["bound_by"]),
+             ("K4 16384x32x128 in place",
+              k4_times[(16384, 32, 128)]["k4_in"],
+              k4_times[(16384, 32, 128)]["bound"],
+              k4_times[(16384, 32, 128)]["bound_by"])]
     for name, ms, b_ms, b_by in rows:
         nbytes = b_ms * HBM_BYTES_PER_S / 1e3
         at_ceiling = nbytes / (ceiling * 1e6)
@@ -1314,11 +1381,11 @@ def main():
         "replaces": "simplex_tpu/ops/pallas_pivot.py:67",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": k1_bound,
-        "bound_by": k1_by,
-        "library_ms": a_ms,
+        "ms": k1["one"],
+        "plain_ms": k1["twin"],
+        "bound_ms": k1["bound"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["addr_one"],
     }, {
         "name": "K2 fused_pivot_step",
         "route": "cuda",

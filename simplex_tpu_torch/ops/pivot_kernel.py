@@ -19,12 +19,38 @@ the host; ``do_pivot`` False leaves ``T`` bit-identical.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 # Kernel launches since the counter was last reset to 0.  Incremented only
 # where the CUDA kernel is launched, so a run can prove that its pivots went
 # through the kernel.
 LAUNCHES = 0
+
+
+def row_divider(W: int) -> Tuple[int, int]:
+    """``(magic, shift)`` with which K1 divides a flat index ``k`` by the
+    width ``W``: ``row = (umulhi64(k, magic) + k) >> shift``, exact for
+    every ``0 <= k < 2**63`` (see :func:`row_of`).
+
+    ``shift`` is the least ``l`` with ``2**l >= W`` and ``magic`` is
+    ``floor(2**64 * (2**l - W) / W) + 1`` (Granlund and Montgomery, 1994,
+    as torch's ``IntDivider``), so the kernel divides with one 64-bit
+    high multiply, an add and a shift instead of a 64-bit division.
+    """
+    if not 1 <= W < 2 ** 63:
+        raise ValueError(f"W must be in [1, 2**63), got {W}")
+    shift = (W - 1).bit_length()
+    magic = ((1 << 64) * ((1 << shift) - W)) // W + 1
+    return magic, shift
+
+
+def row_of(k: int, magic: int, shift: int) -> int:
+    """K1's division of the flat index ``k`` as the kernel does it, in
+    exact integers: the high 64 bits of ``k * magic``, plus ``k``, shifted
+    right by ``shift``."""
+    return (((k * magic) >> 64) + k) >> shift
 
 
 def _check(T, r, s, do_pivot):
@@ -98,18 +124,18 @@ def pivot_update_(T: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
 
     lib = kernels.library()
     R, W = T.shape
-    col = torch.empty(R, dtype=T.dtype, device=T.device)
-    prow = torch.empty(W, dtype=T.dtype, device=T.device)
-    vec = 16 // T.element_size()
-    vectorized = (W % vec == 0 and T.data_ptr() % 16 == 0
-                  and prow.data_ptr() % 16 == 0)
+    # The pivot column (R) then the pivot row (W), in one allocation.
+    side = torch.empty(R + W, dtype=T.dtype, device=T.device)
+    col = side.data_ptr()
+    prow = col + R * T.element_size()
+    magic, shift = row_divider(W)
     fn = (lib.k1_pivot_update_f32 if T.dtype == torch.float32
           else lib.k1_pivot_update_f64)
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(T.data_ptr(), R, W, r.data_ptr(), s.data_ptr(),
-                 do_pivot.data_ptr(), int(bool(clamp_rhs)), col.data_ptr(),
-                 prow.data_ptr(), int(vectorized), stream)
+        err = fn(T.data_ptr(), R, W, magic, shift, r.data_ptr(),
+                 s.data_ptr(), do_pivot.data_ptr(), int(bool(clamp_rhs)),
+                 col, prow, stream)
     if err != 0:
         raise RuntimeError(f"K1 pivot_update launch failed: CUDA error {err}")
     LAUNCHES += 1

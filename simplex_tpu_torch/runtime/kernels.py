@@ -101,8 +101,10 @@ def library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name in ("k1_pivot_update_f32", "k1_pivot_update_f64"):
         fn = getattr(lib, name)
-        # tab, R, W, r, s, do_pivot, clamp_rhs, col, prow, vectorized, stream
-        fn.argtypes = [p, i64, i64, p, p, p, i32, p, p, i32, p]
+        # tab, R, W, magic, shift, r, s, do_pivot, clamp_rhs, col, prow,
+        # stream
+        fn.argtypes = [p, i64, i64, ctypes.c_uint64, i32, p, p, p, i32, p, p,
+                       p]
         fn.restype = i32
     for name, real in (("k2_fused_pivot_step_f32", ctypes.c_float),
                        ("k2_fused_pivot_step_f64", ctypes.c_double)):

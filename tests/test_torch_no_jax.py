@@ -54,3 +54,10 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 def test_chip_smoke_imports_no_jax():
     with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
         assert not _FORBIDDEN.search(f.read())
+
+
+def test_stream_variants_tool_imports_no_jax():
+    """The variant sweep runs on the GPU machine beside chip_smoke.py."""
+    path = os.path.join(REPO, "tools", "stream_variants.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.search(f.read())

@@ -40,7 +40,8 @@ def _pivots(R, W):
 
 
 @pytest.mark.parametrize("clamp", [False, True])
-@pytest.mark.parametrize("shape", [(512, 512), (257, 300)])
+@pytest.mark.parametrize("shape", [(512, 512), (257, 300), (257, 301),
+                                   (64, 7), (33, 3), (9, 1)])
 def test_twin_matches_jax_pivot_update(shape, clamp):
     import jax.numpy as jnp
     from simplex_tpu.ops.tableau import pivot_update as jax_pivot_update
@@ -50,7 +51,10 @@ def test_twin_matches_jax_pivot_update(shape, clamp):
     T_np[:, -1] = np.abs(T_np[:, -1])
     T_np[5, -1] = -0.25          # a tolerance-negative RHS for the clamp
     basis = jnp.arange(R - 1, dtype=jnp.int32)
-    for r, s in _pivots(R, W) + [(5, 7)]:
+    # Narrow tableaus have fewer distinct pivot positions.
+    pivots = sorted({(r, s) for r, s in _pivots(R, W) + [(5, 7)]
+                     if 0 <= r < R and 0 <= s < W})
+    for r, s in pivots:
         ref, _ = jax_pivot_update(jnp.asarray(T_np), basis, jnp.int32(r),
                                   jnp.int32(s), clamp_rhs=clamp)
         got = pivot_update_ref(torch.from_numpy(T_np.copy()), _idx(r),
@@ -118,6 +122,44 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(name):
         pivot_update_(**kw)
 
 
+def _divider_cases():
+    """(W, flat indices) pairs: every W in 1..4096 and chip_smoke.py's
+    widths, each at the first and last index of an R x W tableau (R from
+    chip_smoke.py's shapes and one near the 2**63 limit) and on both sides
+    of row boundaries near the start, the middle and the end."""
+    shapes = [(257, 300), (257, 301), (2304, 4608), (10240, 10240),
+              (10241, 10241), (64, 7), (33, 3), (9, 1)]
+    widths = sorted(set(range(1, 4097)) | {W for _, W in shapes})
+    for W in widths:
+        rows = {R for R, _ in shapes} | {(2 ** 63 - 1) // W}
+        ks = set()
+        for R in rows:
+            n = R * W
+            ks |= {0, n - 1}
+            for i in (1, 2, 3, R // 2, R - 2, R - 1):
+                if 0 < i < R:
+                    ks |= {i * W - 1, i * W, i * W + 1}
+        yield W, sorted(k for k in ks if 0 <= k < 2 ** 63)
+
+
+def test_row_divider_gives_exact_rows_and_columns():
+    """K1 splits a flat index into (row, column) with the wrapper's
+    multiply-shift constant, not a division: it must equal k // W and
+    k % W exactly at every width and at the indices where a row turns."""
+    for W, ks in _divider_cases():
+        magic, shift = pivot_kernel.row_divider(W)
+        assert 0 < magic < 2 ** 64 and 0 <= shift <= 63
+        for k in ks:
+            i = pivot_kernel.row_of(k, magic, shift)
+            assert (i, k - i * W) == divmod(k, W), (W, k)
+
+
+def test_row_divider_rejects_widths_out_of_range():
+    for W in (0, -3, 2 ** 63):
+        with pytest.raises(ValueError):
+            pivot_kernel.row_divider(W)
+
+
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
     """No compiler, no kernel: the build raises rather than falling back."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -152,6 +194,44 @@ def test_cuda_kernel_matches_twin(shape, clamp):
     pivot_update_(same, _idx(1, "cuda"), _idx(2, "cuda"),
                   _flag(False, "cuda"), clamp_rhs=True)
     assert torch.equal(same, T0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_matches_twin_at_odd_widths(dtype, offset):
+    """Widths that are not a whole number of 16-byte vectors, where a
+    vector spans a row boundary (several for W < 4), on a tableau at the
+    start of its buffer and on a view one element past it (``offset``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    for R, W in [(257, 301), (64, 7), (33, 3), (9, 1)]:
+        T0 = torch.from_numpy(_tableau(R, W, seed=R * W)).to(dtype).cuda()
+        T0[:, -1] = T0[:, -1].abs()
+        T0[1, -1] = -1e-3
+        buf = torch.empty(R * W + offset, dtype=dtype, device="cuda")
+        tol = 1e-6 * float(T0.abs().max())
+        pivots = sorted({(r, s) for r, s in _pivots(R, W)
+                         if 0 <= r < R and 0 <= s < W})
+        for clamp in (False, True):
+            for r, s in pivots:
+                got = buf[offset:].view(R, W)
+                got.copy_(T0)
+                pivot_update_(got, _idx(r, "cuda"), _idx(s, "cuda"),
+                              _flag(True, "cuda"), clamp_rhs=clamp)
+                ref = pivot_update_ref(T0.clone(), _idx(r, "cuda"),
+                                       _idx(s, "cuda"), _flag(True, "cuda"),
+                                       clamp_rhs=clamp)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, ref, rtol=1e-6, atol=tol)
+                assert torch.equal(got[r], ref[r])
+                assert torch.equal(got[:, s], ref[:, s])
+        same = buf[offset:].view(R, W)
+        same.copy_(T0)
+        pivot_update_(same, _idx(R // 2, "cuda"), _idx(W // 2, "cuda"),
+                      _flag(False, "cuda"), clamp_rhs=True)
+        torch.cuda.synchronize()
+        assert torch.equal(same, T0)
 
 
 @pytest.mark.gpu

@@ -292,6 +292,25 @@ def test_cuda_kernel_matches_twin(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_at_lengths_of_partial_tiles(dtype):
+    """Lengths that end inside a block's tile (1024 vectors of 16 bytes)
+    and inside a vector, from the buffer's start and one element in: the
+    last tile's missing vectors and the scalar tail must be handled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    for n in [3 * 1024 * vec + 37 * vec + 3, 1024 * vec - 1, 5, 1]:
+        buf = torch.from_numpy(_data((n + 1,), seed=n)).to(dtype).cuda()
+        for x in (buf[:n], buf[1:]):
+            ref = stream_copy_ref(x.clone())
+            out = stream_copy_(x, out=torch.empty_like(x))
+            stream_copy_(x)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref) and torch.equal(x, ref)
+
+
+@pytest.mark.gpu
 def test_cuda_pivot_bench_goes_through_k1_and_k4():
     """A small chain on the card: K1 and K4 launched, the state within
     1e-5·max|T| of the CPU run's (K1 rounds with one FMA, the twin through
