@@ -23,30 +23,39 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 5. the main path at full size: ``simplex_tpu_torch.solve_lp`` on the
    2048 x 2048 dense LP of ``bench.py::bench_dense_solve``, checked against
    HiGHS, with the K1 launch count of that run;
-6. K2 (``csrc/fused_pivot_step.cu``) against its plain PyTorch twin on the
-   card: eight successive steps on tableaus that ``compile_batch_uniform``
-   builds, at 16x128 (mixed operators, phase 1 and phase 2 instances, f32
-   and f64), 32x128 (the 30x50 batch, B=1024 and B=16384) and 64x256
-   (60x100, mixed), Dantzig and Devex, Bland on half the instances and
-   some instances not running;
+6. K2 (``csrc/fused_pivot_step.cu``, on the batched-step skeleton
+   ``csrc/batched_step_common.cuh`` it shares with K3) against its plain
+   PyTorch twin on the card: eight successive steps on tableaus that
+   ``compile_batch_uniform`` builds (``STEP_CASES``), at 16x128 (mixed
+   operators, phase 1 and phase 2 instances, f32 and f64), 32x128 (the
+   30x50 batch, B=1024 and B=16384), 64x256 (60x100, mixed), above the
+   kernels' 64 KB staging budget (100x150 f32 and 200x300 f64, mixed) and
+   unpadded tiles that are not a whole number of 16-byte vectors (9x29 f32
+   and f64, 9x23 f32), Dantzig and Devex, Bland on half the instances and
+   some instances not running; s, r, flags and basis equal, T and w 0 ulps
+   from the twin;
 7. K2 timed against its twin and torch's ``copy_`` of the same tableau at
-   B=1024 and B=16384 (32x128 f32), CUDA events;
+   B=1024 and B=16384 (32x128 f32), CUDA events: one launch from the first
+   tableau, and chained (16 successive steps from the first tableau
+   between two events, median of 5 with the spread and the host's enqueue
+   a call, in turns with chains of ``copy_`` and of K4 in place), the
+   chained bound the mean of those 16 steps' own bytes;
 8. the batched path at full width: ``BatchedSimplexSolver.solve_arrays``
    on the 16384 x (30x50) batch of ``bench.py::bench_batched_solve``,
    certified, checked against HiGHS on a sample, with the K2 launch count
-   of that run; then a 1024 x (30x50) batch with ``>=`` and ``=`` rows
+   of that run and one more run under ``torch.profiler`` (K2's share of
+   the device time); then a 1024 x (30x50) batch with ``>=`` and ``=`` rows
    through the two-phase loop, every verdict checked against HiGHS;
 9. K3 (``csrc/fused_pivot_step_bounded.cu``) against its plain PyTorch
    twin on the card: eight successive steps, after three twin steps that
-   put columns at their upper bounds, on bounded tableaus at 16x128 (mixed
-   operators, artificial-exit rows on, f32 and f64), 32x128 (the bounded
-   30x50 batch, B=1024 and B=16384, no artificial columns; B=1024 mixed,
-   artificial-exit rows on, the general driver's shape) and 64x256
-   (60x100, mixed), Dantzig and Devex, Bland on half the instances, some
-   instances not running; at least one bound flip and one entry from an
-   upper bound must happen;
-10. K3 timed against its twin and torch's ``copy_`` at B=1024 and B=16384
-    (32x128 f32), CUDA events;
+   put columns at their upper bounds, on bounded tableaus of phase 6's
+   cases plus 32x128 B=1024 mixed (artificial-exit rows on, the general
+   driver's shape; every mixed case runs them), Dantzig and Devex, Bland
+   on half the instances, some instances not running; s, r, flags, basis
+   and bound state equal, T, w and ub_B 0 ulps from the twin; at least one
+   bound flip and one entry from an upper bound must happen;
+10. K3 timed as K2 in phase 7 (one launch and chained, in turns with
+    ``copy_`` and K4);
 11. the bounded path at full width: ``solve_arrays(..., ub=)`` on the
     16384 x (30x50) batch of ``bench.py::bench_bounded_batched`` (60 % of
     the variables bounded), certified, against HiGHS on a sample, with the
@@ -454,19 +463,44 @@ def _ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
+# Cases of phases 6 and 9: (B, m, n, mixed rows, dtype, (row_pad,
+# col_pad)).  The compiler's default padding gives 16x128 (9x13), 32x128
+# (30x50) and 64x256 (60x100) tableaus; 100x150 in float32 (104x384,
+# 156 KB) and 200x300 in float64 (208x768, 1.25 MB) lie above the kernels'
+# 64 KB staging budget (csrc/batched_step_common.cuh), so their update
+# streams; unpadded 8x12 (9x29) and 8x14 (9x23) tiles are not a whole number
+# of 16-byte vectors, so every instance but the first starts off a 16-byte
+# boundary and is staged by cp.async with a scalar head and tail.
+STEP_CASES = [(16, 9, 13, True, np.float32, (8, 128)),
+              (16, 9, 13, True, np.float64, (8, 128)),
+              (1024, 30, 50, False, np.float32, (8, 128)),
+              (16384, 30, 50, False, np.float32, (8, 128)),
+              (64, 60, 100, True, np.float32, (8, 128)),
+              (8, 100, 150, True, np.float32, (8, 128)),
+              (8, 200, 300, True, np.float64, (8, 128)),
+              (64, 8, 12, True, np.float32, (1, 1)),
+              (64, 8, 12, True, np.float64, (1, 1)),
+              (64, 8, 14, False, np.float32, (1, 1))]
+
+
+def _where(B, M, N, dtype):
+    tile = M * N * np.dtype(dtype).itemsize
+    kind = "streamed" if tile > 64 * 1024 else "staged"
+    odd = ", not a 16-byte multiple" if tile % 16 else ""
+    return f"{B}x{M}x{N} {np.dtype(dtype).name} ({tile} B a tile, {kind}{odd})"
+
+
 def phase_k2(torch, bk, compile_batch_uniform):
     """K2 against its twin: eight successive steps from the same state,
-    outputs and flags equal, T and w within one ulp, inactive instances
-    bit-identical; returns the worst absolute difference seen."""
+    outputs, flags and basis equal, T and w 0 ulps from the twin (equal up
+    to the sign of a zero), inactive instances bit-identical; returns the
+    worst absolute difference seen."""
     dev = torch.device("cuda")
-    cases = [(16, 9, 13, True, np.float32), (16, 9, 13, True, np.float64),
-             (1024, 30, 50, False, np.float32),
-             (16384, 30, 50, False, np.float32),
-             (64, 60, 100, True, np.float32)]
     worst = 0.0
-    for B, m, n, mixed, dtype in cases:
+    for B, m, n, mixed, dtype, pad in STEP_CASES:
         cb = compile_batch_uniform(*random_batch(B + m, B, m, n, mixed),
-                                   maximize=True, dtype=dtype)
+                                   maximize=True, dtype=dtype,
+                                   row_pad=pad[0], col_pad=pad[1])
         for devex in (False, True):
             T = torch.as_tensor(cb.T0, device=dev).contiguous()
             _, M, N = T.shape
@@ -495,8 +529,7 @@ def phase_k2(torch, bk, compile_batch_uniform):
                                                 twin[2], tol=1e-6,
                                                 devex=devex)
                 torch.cuda.synchronize()
-                where = f"{B}x{M}x{N} {np.dtype(dtype).name} devex={devex} " \
-                        f"step {step}"
+                where = f"{_where(B, M, N, dtype)} devex={devex} step {step}"
                 for name, a, b in zip(("s", "r", "optimal", "unbounded",
                                        "did_pivot"), out_k[3:], out_t[3:]):
                     check(torch.equal(a, b), f"K2 {name} differs, {where}")
@@ -507,22 +540,149 @@ def phase_k2(torch, bk, compile_batch_uniform):
                 check(bool(did.any()) or step > 0, f"no pivot, {where}")
                 ulp = max(int(_ulps(T, twin[0]).max()),
                           int(_ulps(w, twin[2]).max()))
-                check(ulp <= 1, f"K2 T/w {ulp} ulps from the twin, {where}")
+                check(ulp == 0, f"K2 T/w {ulp} ulps from the twin, {where}")
                 max_ulp = max(max_ulp, ulp)
                 err = max(err, float((T - twin[0]).abs().max()),
                           float((w - twin[2]).abs().max()))
             log(f"[k2] {where.rsplit(' step', 1)[0]}: 8 steps match the "
-                f"twin (s, r, flags, basis equal; T and w within "
-                f"{max_ulp} ulp), max_abs_err={err!r}")
+                f"twin (s, r, flags, basis equal; T and w {max_ulp} ulps "
+                f"from it), max_abs_err={err!r}")
             worst = max(worst, err)
         del cb
     return worst
 
 
-def phase_k2_timing(torch, bk, compile_batch_uniform, gpu):
+CHAIN_STEPS = 16
+
+
+def _profiled(torch, fn):
+    """``fn()`` under ``torch.profiler``: its wall seconds and, for every
+    kernel and copy on the device, (device us, count, name).  An aten op's
+    record, on the host or as the profiler's annotation of it on the
+    device's timeline, spans the device time of what it launched, which is
+    counted already, so those are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA \
+                or ev.key.startswith("aten::"):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            events.append((us, ev.count, ev.key))
+    return wall, events
+
+
+def _device_ms(torch, fn, key):
+    """``fn()`` under ``torch.profiler``: the device ms a launch of the
+    kernels whose name holds ``key``, and their count."""
+    hits = [(us, n) for us, n, name in _profiled(torch, fn)[1] if key in name]
+    us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    return (us / 1e3 / n if n else float("nan")), n
+
+
+def _step_chains(torch, sk, step, reset, T, n=CHAIN_STEPS, reps=5):
+    """``n`` successive steps of a batched kernel from the batch's first
+    state (``reset`` restores it before each chain, outside the events)
+    between two CUDA events, in turns with chains of ``n`` torch ``copy_``s
+    of the tableau ``T`` into a spare buffer and ``n`` K4 passes in place on
+    a copy of it (forward order in even rounds, backward in odd ones), one
+    warm-up round and ``reps`` timed ones.  Returns {name: (device ms a
+    call, host enqueue ms a call)} lists for "kernel", "copy_" and "k4"."""
+    dst = torch.empty_like(T)
+    x = T.clone()
+
+    def kernel():
+        for _ in range(n):
+            step()
+
+    def copy():
+        for _ in range(n):
+            dst.copy_(T)
+
+    def k4():
+        for _ in range(n):
+            sk.stream_copy_(x)
+
+    runs = {"kernel": kernel, "copy_": copy, "k4": k4}
+    out = {name: ([], []) for name in runs}
+    for rnd in range(reps + 1):
+        order = list(runs) if rnd % 2 == 0 else list(runs)[::-1]
+        for name in order:
+            if name == "kernel":
+                reset()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            runs[name]()
+            host = (time.perf_counter() - t0) * 1e3 / n
+            end.record()
+            end.synchronize()
+            if rnd:
+                out[name][0].append(start.elapsed_time(end) / n)
+                out[name][1].append(host)
+    del dst, x
+    return out
+
+
+def _chain_report(torch, name, B, M, N, chains, step_bytes, flops, profiled,
+                  stopped, gpu):
+    """Log the chained times of a kernel against its bound (the mean of its
+    ``n`` steps' own bytes) and against ``copy_`` and K4 moving the same
+    bytes, with ``profiled`` (the device ms a launch of one more chain under
+    the profiler, and the launches it saw) and ``stopped`` (ms of one
+    launch with every instance stopped, and its bound); returns the
+    numbers."""
+    med = {k: statistics.median(v[0]) for k, v in chains.items()}
+    dev = chains["kernel"][0]
+    t = {"chain": med["kernel"],
+         "chain_spread": (max(dev) - min(dev)) / med["kernel"],
+         "host": statistics.median(chains["kernel"][1]),
+         "copy_": med["copy_"], "k4": med["k4"]}
+    t["chain_bound"], t["chain_bound_by"] = _bound_ms(step_bytes, flops)
+    whole = 2 * B * M * N * 4
+    t["copy_same"] = med["copy_"] * step_bytes / whole
+    t["k4_same"] = med["k4"] * step_bytes / whole
+    t["device"], n_prof = profiled
+    t["stopped"], t["stopped_bound"] = stopped
+    log(f"[{name}-chain] B={B} {M}x{N} f32 Devex on {gpu}: {CHAIN_STEPS} "
+        f"steps from the first tableau, median of {len(dev)}: "
+        f"{t['chain']!r} ms a step (spread {t['chain_spread']!r}; host "
+        f"enqueue {t['host']!r} ms a call); bound {t['chain_bound']!r} ms "
+        f"({t['chain_bound_by']}, {step_bytes!r} B a step, the mean of the "
+        f"{CHAIN_STEPS} steps' own) = {t['chain_bound'] / t['chain']!r} of "
+        f"it; "
+        f"torch copy_ of the tableau {med['copy_']!r} ms a call "
+        f"({whole / med['copy_'] / 1e6!r} GB/s), of the same bytes "
+        f"{t['copy_same']!r} ms = {t['copy_same'] / t['chain']!r} of "
+        f"{name.upper()}'s time; K4 in place {med['k4']!r} ms a call, the "
+        f"same bytes {t['k4_same']!r} ms = {t['k4_same'] / t['chain']!r}")
+    log(f"[{name}-chain] B={B} on {gpu}: one more chain under "
+        f"torch.profiler: {t['device']!r} ms of device time a launch "
+        f"({n_prof} launches) = {t['chain_bound'] / t['device']!r} of the "
+        f"bound, {t['copy_same'] / t['device']!r} of copy_'s time for the "
+        f"same bytes; one launch with every instance stopped (the late "
+        f"steps of a solve): {t['stopped']!r} ms against a "
+        f"{t['stopped_bound']!r} ms bound")
+    return t
+
+
+def phase_k2_timing(torch, bk, sk, compile_batch_uniform, gpu):
     """ms per step of K2, of its twin and of torch's ``copy_`` of the same
-    (B, 32, 128) f32 tableau; every timed step starts from the batch's
-    first tableau.  Returns (kernel_ms, twin_ms) at B=16384."""
+    (B, 32, 128) f32 tableau: one launch from the batch's first tableau
+    (median of 20), then chained (:func:`_step_chains`).  Returns {B: dict
+    of the times and bounds}."""
     dev = torch.device("cuda")
     out = {}
     for B in (1024, 16384):
@@ -541,12 +701,15 @@ def phase_k2_timing(torch, bk, compile_batch_uniform, gpu):
         w = torch.ones((B, N), device=dev)
         dst = torch.empty_like(T0)
 
+        def reset():
+            T.copy_(T0)
+            basis.copy_(basis0)
+            w.fill_(1.0)
+
         def timed(step, reps=20, warmup=3):
             times = []
             for k in range(warmup + reps):
-                T.copy_(T0)
-                basis.copy_(basis0)
-                w.fill_(1.0)
+                reset()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -563,9 +726,7 @@ def phase_k2_timing(torch, bk, compile_batch_uniform, gpu):
         c_ms = timed(lambda: dst.copy_(T))
         nbytes = 2 * B * M * N * 4
         # The bound, from the timed step's own outcome.
-        T.copy_(T0)
-        basis.copy_(basis0)
-        w.fill_(1.0)
+        reset()
         elig = _eligible(torch, T, cm, cm, phase)
         res = bk.fused_pivot_step_(*args, devex=True)
         did, no_flip = res[7], torch.zeros_like(res[7])
@@ -581,9 +742,47 @@ def phase_k2_timing(torch, bk, compile_batch_uniform, gpu):
             f"({nbytes / c_ms / 1e6!r} GB/s); K2 = {c_ms / k_ms!r} of copy_; "
             f"bound {b_ms!r} ms ({b_by}, {step_bytes} B{resident}), "
             f"K2 = {b_ms / k_ms!r} of it")
-        out[B] = (k_ms, p_ms, b_ms, b_by)
+        one = dict(one=k_ms, twin=p_ms, bound=b_ms, bound_by=b_by)
+        # The chained bound: this run's 16 steps, untimed (the kernel is
+        # deterministic, so the timed chains take the same steps).
+        reset()
+        total, flops = 0, 0
+        for _ in range(CHAIN_STEPS):
+            elig = _eligible(torch, T, cm, cm, phase)
+            res = bk.fused_pivot_step_(*args, devex=True)
+            did = res[7]
+            state = _state_bytes(M, N, 4, did, no_flip, res[5], elig, bland,
+                                 devex=True, bounded=False)
+            total += _step_bytes(M, N, 4, did, no_flip, state)
+            flops += 2 * M * N * int(did.sum())
+        chains = _step_chains(
+            torch, sk, lambda: bk.fused_pivot_step_(*args, devex=True), reset,
+            T)
+        reset()
+        profiled = _device_ms(torch, lambda: [
+            bk.fused_pivot_step_(*args, devex=True)
+            for _ in range(CHAIN_STEPS)], "fused_pivot_step_kernel")
+        # Every instance stopped: each reads what decides its s, r and
+        # flags, and writes nothing else.
+        stopped = torch.zeros_like(status)
+        reset()
+        elig = _eligible(torch, T, cm, cm, phase)
+        nothing = torch.zeros_like(did)
+        optimal = bk.fused_pivot_step_ref(T.clone(), basis.clone(), cm, cm,
+                                          phase, stopped, bland, w.clone(),
+                                          devex=True)[5]
+        state = _state_bytes(M, N, 4, nothing, nothing, optimal, elig, bland,
+                             devex=True, bounded=False)
+        s_args = (T, basis, cm, cm, phase, stopped, bland, w)
+        s_ms = timed(lambda: bk.fused_pivot_step_(*s_args, devex=True))
+        s_bound = _bound_ms(_step_bytes(M, N, 4, nothing, nothing, state),
+                            0)[0]
+        one.update(_chain_report(torch, "k2", B, M, N, chains,
+                                 total / CHAIN_STEPS, flops / CHAIN_STEPS,
+                                 profiled, (s_ms, s_bound), gpu))
+        out[B] = one
         del T0, T, dst, cb
-    return out[16384]
+    return out
 
 
 def bench_batch(B, m=30, n=50):
@@ -672,6 +871,9 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
         f"pivots mean {float(res.pivots.mean())!r} max {pmax}, nit "
         f"{res.nit}, K2 launches {launches_full}; z within 1e-6(1+|z|) of "
         f"HiGHS on 256 sampled ({highs_s!r} s on the host)")
+    _profile_solve(torch, lambda: solver.solve_arrays(c, A, b, ops,
+                                                      maximize=True),
+                   "fused_pivot_step_kernel", "K2", "batched", gpu)
 
     Bm = 1024
     c, A, b, ops, maximize = mixed_batch(Bm)
@@ -748,21 +950,21 @@ class BoundedState:
 def phase_k3(torch, bk, compile_batch_uniform):
     """K3 against its twin: three twin steps put columns at their upper
     bounds, then eight successive steps from the same state; outputs, flags
-    and the bound state equal, T, w and ub_B within one ulp, instances that
-    do not move bit-identical; at least one flip and one entry from an
-    upper bound over all cases.  Returns the worst absolute difference."""
+    and the bound state equal, T, w and ub_B 0 ulps from the twin (equal up
+    to the sign of a zero), instances that do not move bit-identical; at
+    least one flip and one entry from an upper bound over all cases.
+    Returns the worst absolute difference."""
     dev = torch.device("cuda")
-    cases = [(16, 9, 13, True, np.float32), (16, 9, 13, True, np.float64),
-             (1024, 30, 50, False, np.float32),
-             (1024, 30, 50, True, np.float32),   # the general driver's shape
-             (16384, 30, 50, False, np.float32),
-             (64, 60, 100, True, np.float32)]
+    # Phase 6's cases and the general (two-phase) driver's shape.
+    cases = STEP_CASES[:3] + [(1024, 30, 50, True, np.float32, (8, 128))] \
+        + STEP_CASES[3:]
     worst = 0.0
     total_flips = total_from_up = 0
-    for B, m, n, mixed, dtype in cases:
+    for B, m, n, mixed, dtype, pad in cases:
         cb = compile_batch_uniform(*random_batch(B + m, B, m, n, mixed),
                                    maximize=True, dtype=dtype,
-                                   ub=bounded_ub(B + m + 1, B, n))
+                                   ub=bounded_ub(B + m + 1, B, n),
+                                   row_pad=pad[0], col_pad=pad[1])
         status = torch.full((B,), -1, dtype=torch.int32, device=dev)
         status[::5] = 0                       # not running
         bland = torch.arange(B, device=dev) % 2 == 0
@@ -773,7 +975,7 @@ def phase_k3(torch, bk, compile_batch_uniform):
             for _ in range(3):
                 bk.fused_pivot_step_bounded_ref(*k.args(), **kw)
             err, max_ulp, flips, from_up = 0.0, 0, 0, 0
-            where = f"{B}x{M}x{N} {np.dtype(dtype).name} devex={devex}"
+            where = f"{_where(B, M, N, dtype)} devex={devex}"
             for step in range(8):
                 t, before = k.clone(), k.clone()
                 out_k = bk.fused_pivot_step_bounded_(*k.args(), **kw)
@@ -793,7 +995,8 @@ def phase_k3(torch, bk, compile_batch_uniform):
                           f"K3 changed {name} of a still instance, {at}")
                 ulp = max(int(_ulps(getattr(k, x), getattr(t, x)).max())
                           for x in ("T", "w", "ub_B"))
-                check(ulp <= 1, f"K3 T/w/ub_B {ulp} ulps from the twin, {at}")
+                check(ulp == 0,
+                      f"K3 T/w/ub_B {ulp} ulps from the twin, {at}")
                 max_ulp = max(max_ulp, ulp)
                 for x in ("T", "w", "ub_B"):
                     d = (getattr(k, x) - getattr(t, x)).abs()
@@ -804,9 +1007,9 @@ def phase_k3(torch, bk, compile_batch_uniform):
                 flips += int(flip.sum())
                 from_up += int((moving & ~flip & up).sum())
             log(f"[k3] {where}: 8 steps match the twin (s, r, flags, basis, "
-                f"at_upper, is_art_row equal; T, w and ub_B within "
-                f"{max_ulp} ulp), {flips} flips, {from_up} entries from an "
-                f"upper bound, max_abs_err={err!r}")
+                f"at_upper, is_art_row equal; T, w and ub_B {max_ulp} ulps "
+                f"from it), {flips} flips, {from_up} entries from an upper "
+                f"bound, max_abs_err={err!r}")
             worst = max(worst, err)
             total_flips += flips
             total_from_up += from_up
@@ -817,11 +1020,11 @@ def phase_k3(torch, bk, compile_batch_uniform):
     return worst
 
 
-def phase_k3_timing(torch, bk, compile_batch_uniform, gpu):
+def phase_k3_timing(torch, bk, sk, compile_batch_uniform, gpu):
     """ms per step of K3, of its twin and of torch's ``copy_`` of the same
-    (B, 32, 128) f32 tableau, every timed step from the batch's first
-    state; the bound from that step's own outcome.  Returns (kernel_ms,
-    twin_ms, bound_ms, bound_by) at B=16384."""
+    (B, 32, 128) f32 tableau: one launch from the batch's first state
+    (median of 20; the bound from that step's own outcome), then chained
+    (:func:`_step_chains`).  Returns {B: dict of the times and bounds}."""
     dev = torch.device("cuda")
     out = {}
     for B in (1024, 16384):
@@ -835,11 +1038,14 @@ def phase_k3_timing(torch, bk, compile_batch_uniform, gpu):
         _, M, N = st.T.shape
         dst = torch.empty_like(st.T)
 
+        def reset():
+            for name in BoundedState.STATE:
+                getattr(st, name).copy_(getattr(first, name))
+
         def timed(step, reps=20, warmup=3):
             times = []
             for k in range(warmup + reps):
-                for name in BoundedState.STATE:
-                    getattr(st, name).copy_(getattr(first, name))
+                reset()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -855,8 +1061,7 @@ def phase_k3_timing(torch, bk, compile_batch_uniform, gpu):
         p_ms = timed(lambda: bk.fused_pivot_step_bounded_ref(*st.args(),
                                                              **kw))
         c_ms = timed(lambda: dst.copy_(st.T))
-        for name in BoundedState.STATE:
-            getattr(st, name).copy_(getattr(first, name))
+        reset()
         elig = _eligible(torch, st.T, st.cm1, st.cm2, st.phase, st.at_upper)
         res = bk.fused_pivot_step_bounded_(*st.args(), **kw)
         moving = res[10]
@@ -876,9 +1081,48 @@ def phase_k3_timing(torch, bk, compile_batch_uniform, gpu):
             f"{int(pivot.sum())} pivots, {int(flip.sum())} flips; bound "
             f"{b_ms!r} ms ({b_by}, {step_bytes} B{resident}), K3 = "
             f"{b_ms / k_ms!r} of it")
-        out[B] = (k_ms, p_ms, b_ms, b_by)
+        one = dict(one=k_ms, twin=p_ms, bound=b_ms, bound_by=b_by)
+        reset()
+        total, flops = 0, 0
+        for _ in range(CHAIN_STEPS):
+            elig = _eligible(torch, st.T, st.cm1, st.cm2, st.phase,
+                             st.at_upper)
+            basis_before = st.basis.clone()
+            res = bk.fused_pivot_step_bounded_(*st.args(), **kw)
+            moving = res[10]
+            flip = moving & (st.basis == basis_before).all(1)
+            pivot = moving & ~flip
+            state = _state_bytes(M, N, 4, pivot, flip, res[8], elig, bland,
+                                 devex=True, bounded=True)
+            total += _step_bytes(M, N, 4, pivot, flip, state)
+            flops += 2 * M * N * int(pivot.sum())
+        chains = _step_chains(
+            torch, sk, lambda: bk.fused_pivot_step_bounded_(*st.args(), **kw),
+            reset, st.T)
+        reset()
+        profiled = _device_ms(torch, lambda: [
+            bk.fused_pivot_step_bounded_(*st.args(), **kw)
+            for _ in range(CHAIN_STEPS)], "fused_pivot_step_bounded")
+        # Every instance stopped: each reads what decides its s, r and
+        # flags, and writes nothing else.
+        reset()
+        st.status = torch.zeros_like(status)
+        elig = _eligible(torch, st.T, st.cm1, st.cm2, st.phase, st.at_upper)
+        nothing = torch.zeros_like(moving)
+        optimal = bk.fused_pivot_step_bounded_ref(*st.clone().args(),
+                                                  **kw)[8]
+        state = _state_bytes(M, N, 4, nothing, nothing, optimal, elig, bland,
+                             devex=True, bounded=True)
+        s_ms = timed(lambda: bk.fused_pivot_step_bounded_(*st.args(), **kw))
+        s_bound = _bound_ms(_step_bytes(M, N, 4, nothing, nothing, state),
+                            0)[0]
+        st.status = status
+        one.update(_chain_report(torch, "k3", B, M, N, chains,
+                                 total / CHAIN_STEPS, flops / CHAIN_STEPS,
+                                 profiled, (s_ms, s_bound), gpu))
+        out[B] = one
         del first, st, dst, cb
-    return out[16384]
+    return out
 
 
 def bench_bounded_batch(B, m=30, n=50):
@@ -968,8 +1212,6 @@ def _profile_bounded(torch, pt, tmb, c, A, b, ops, ub, gpu):
     (with a sync at each edge), then one more solve under
     ``torch.profiler``: device busy share of the wall, K3's share of the
     device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -984,41 +1226,29 @@ def _profile_bounded(torch, pt, tmb, c, A, b, ops, ub, gpu):
     log(f"[bounded-stages] on {gpu}: wall {t3 - t0!r} s = assembly "
         f"{t1 - t0!r} s + _run_batch {t2 - t1!r} s + certify_uniform_result "
         f"{t3 - t2!r} s (certifier {(t3 - t2) / (t3 - t0)!r} of the wall)")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
+    _profile_solve(torch, lambda: solver.solve_arrays(c, A, b, ops,
+                                                      maximize=True, ub=ub),
+                   "fused_pivot_step_bounded", "K3", "bounded", gpu)
 
-    dev_us, k3_us, k3_n, top = 0.0, 0.0, 0, []
-    for ev in prof.key_averages():
-        # Kernels and copies only: an aten op's record, on the host or as
-        # the profiler's annotation of it on the device's timeline, spans
-        # the device time of what it launched, which is counted already.
-        if getattr(ev, "device_type", None) != DeviceType.CUDA \
-                or ev.key.startswith("aten::"):
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us <= 0:
-            continue
-        dev_us += us
-        top.append((us, ev.count, ev.key))
-        if "fused_pivot_step_bounded" in ev.key:
-            k3_us += us
-            k3_n += ev.count
+
+def _profile_solve(torch, solve, key, kernel, name, gpu):
+    """One more ``solve()`` under ``torch.profiler``: device busy share of
+    the wall, and the share of the device time in kernels whose name holds
+    ``key`` (``kernel`` names them in the log)."""
+    wall, top = _profiled(torch, solve)
+    dev_us = sum(us for us, _, _ in top)
+    k_us = sum(us for us, _, name in top if key in name)
+    k_n = sum(n for _, n, name in top if key in name)
     if dev_us == 0:
-        log("[bounded-profile] the profiler saw no device time")
+        log(f"[{name}-profile] the profiler saw no device time")
         return
     top.sort(reverse=True)
-    log(f"[bounded-profile] on {gpu}: wall {wall!r} s (under the profiler), "
+    log(f"[{name}-profile] on {gpu}: wall {wall!r} s (under the profiler), "
         f"device time {dev_us / 1e3!r} ms = {dev_us / 1e6 / wall!r} of the "
-        f"wall; K3 {k3_us / 1e3!r} ms over {k3_n} launches = "
-        f"{k3_us / dev_us!r} of the device time")
-    for us, n, key in top[:6]:
-        log(f"[bounded-profile]   {us / 1e3!r} ms, {n} calls: {key[:90]}")
+        f"wall; {kernel} {k_us / 1e3!r} ms over {k_n} launches = "
+        f"{k_us / dev_us!r} of the device time")
+    for us, n, ev_key in top[:6]:
+        log(f"[{name}-profile]   {us / 1e3!r} ms, {n} calls: {ev_key[:90]}")
 
 
 def phase_bounded(torch, pt, bk, gpu, B=16384):
@@ -1319,8 +1549,8 @@ def main():
 
     # 6. K2 against its twin, 7. timed
     k2_err = phase_k2(torch, bk, compile_batch_uniform)
-    k2_ms, k2_plain_ms, k2_bound, k2_by = phase_k2_timing(
-        torch, bk, compile_batch_uniform, gpu)
+    k2_times = phase_k2_timing(torch, bk, sk, compile_batch_uniform, gpu)
+    k2 = k2_times[16384]
 
     # 8. the batched path at full width
     k2_launches = phase_batched(torch, pt, bk, gpu)
@@ -1328,8 +1558,8 @@ def main():
     # 9. K3 against its twin, 10. timed
     t_k3 = time.perf_counter()
     k3_err = phase_k3(torch, bk, compile_batch_uniform)
-    k3_ms, k3_plain_ms, k3_bound, k3_by = phase_k3_timing(
-        torch, bk, compile_batch_uniform, gpu)
+    k3_times = phase_k3_timing(torch, bk, sk, compile_batch_uniform, gpu)
+    k3 = k3_times[16384]
 
     # 11. the bounded path at full width
     k3_launches = phase_bounded(torch, pt, bk, gpu)
@@ -1355,9 +1585,13 @@ def main():
     # K1 chained, so its share does not carry one launch's host latency.
     rows = [(f"K1 {R}x{W} chained", t["chain"], t["bound"], t["bound_by"])
             for (R, W), t in k1_times.items()]
-    rows += [("K2 B=16384", k2_ms, k2_bound, k2_by),
-             ("K3 B=16384", k3_ms, k3_bound, k3_by),
-             ("K4 10241^2 in place", k4["k4_in"], k4["bound"],
+    # K2 and K3 chained: 16 steps from the first tableau, the bound the
+    # mean of their own bytes.
+    rows += [(f"{name} B={B} chained", t["chain"], t["chain_bound"],
+              t["chain_bound_by"])
+             for name, times in (("K2", k2_times), ("K3", k3_times))
+             for B, t in times.items()]
+    rows += [("K4 10241^2 in place", k4["k4_in"], k4["bound"],
               k4["bound_by"]),
              ("K4 16384x32x128 in place",
               k4_times[(16384, 32, 128)]["k4_in"],
@@ -1393,10 +1627,10 @@ def main():
         "replaces": "simplex_tpu/ops/pallas_batched.py:404",
         "launches": k2_launches,
         "max_abs_err": k2_err,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound,
-        "bound_by": k2_by,
+        "ms": k2["one"],
+        "plain_ms": k2["twin"],
+        "bound_ms": k2["bound"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
     }, {
         "name": "K3 fused_pivot_step_bounded",
@@ -1405,10 +1639,10 @@ def main():
         "replaces": "simplex_tpu/ops/pallas_batched.py:501",
         "launches": k3_launches,
         "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-        "bound_ms": k3_bound,
-        "bound_by": k3_by,
+        "ms": k3["one"],
+        "plain_ms": k3["twin"],
+        "bound_ms": k3["bound"],
+        "bound_by": k3["bound_by"],
         "library_ms": None,
     }, {
         "name": "K4 stream_copy",

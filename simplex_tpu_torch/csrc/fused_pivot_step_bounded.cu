@@ -46,269 +46,370 @@
 // numerator rounds its product and its sum apart, as there; in float64
 // every operation rounds on its own.
 //
-// Bound: memory.  A step must read and write the tableau once (2 B M N
-// sizeof(T) bytes) plus the small bound state.  Design, simple first, K2's
-// shape:
-//   * one block of kThreads threads per instance, which owns the instance's
-//     data, so the in-place update needs no grid-wide sync;
-//   * pricing and the ratio test are block reductions (extremum first,
-//     NaN-propagating, then the lowest index attaining it);
-//   * the pivot column is gathered into a side buffer during the ratio test
-//     and the normalised pivot row before any element of T is written; the
-//     old RHS column needs no buffer, because the one thread that owns
-//     column N-1 in the update reads each of its cells before writing it;
-//   * the update makes one read and one write of T: thread t owns columns
-//     t, t + kThreads, ... of every row, so a warp reads and writes
-//     consecutive addresses.
-// It launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// Bound: bytes.  A pivoting instance must read and write its whole tile
+// once, a flipping or stopping one only its objective row, entering column
+// and RHS column, plus the small bound state (chip_smoke.py::_step_bytes
+// and _state_bytes count it from a step's outcome); the operations are a
+// few per element, far under the card's float32 rate.  Design, on the
+// batched-step skeleton of batched_step_common.cuh (one block of 128
+// threads an instance):
+//   * the block's first round trip loads the instance's status, phase and
+//     Bland flag and its objective row (load_head); a RUNNING instance
+//     whose tile fits kStageMaxBytes (64 KB: the main shape 32 x 128 is
+//     16 KB in float32, 32 KB in float64) is then staged in shared memory
+//     by one TMA bulk copy (cp.async where its base or size is not a
+//     16-byte multiple), while the block loads the masks, at_upper, the
+//     Devex weights and warp 0's rows of ub_B, is_art_row and the basis;
+//   * the decision reads the staged tile: pricing is one block reduction
+//     of (score, first index) and of the first eligible lane; the ratio
+//     test is warp 0 alone, each row's dd, t_lo, t_hi, Harris value and
+//     flags computed once into shared memory, then one pass for the Harris
+//     and Bland choices, reduced by shuffles; four __syncthreads in all on
+//     a Devex pivot;
+//   * the write-back reads the staged tile and writes the whole tile once
+//     in 16-byte vectors from the instance's first 16-byte boundary, the
+//     pivot column, the normalised row and ub_B coming from shared memory;
+//   * the other resident blocks of the SM (ten, at the registers below)
+//     keep their copies and stores in flight while one block decides,
+//     which hides the decision's latency: a persistent grid with a
+//     two-stage ring of staged tiles ran 1.64x slower, and a register cap
+//     for 12 blocks gained under 1 % (tools/batched_variants.py, PERF.md);
+//   * an instance above kStageMaxBytes decides from global memory and
+//     streams its update through the same write-back, four 16-byte vectors
+//     in flight a thread; one that is not RUNNING decides from global
+//     memory and writes only s, r and its flags.
+// Per block of 128 threads, as `-Xptxas -v` reported it on sm_90a: 46
+// registers a thread in float32, 64 in float64, no spills; 128 B (256 B in
+// float64) of static shared memory for the mbarrier and the reduction
+// slots, and layout(M, N, sizeof(T), staged).total bytes of dynamic shared
+// memory (17,456 B at 32 x 128 float32, 34,864 B in float64).  It launches
+// on the caller's stream, allocates nothing and returns cudaGetLastError().
 
 #include "batched_step_common.cuh"
 
 namespace {
 
-// One constraint row's part of the bounded ratio test.
 template <typename T>
-struct BoundedRow {
-  T dd, t_lo, t_hi, t_row, rel;
-  bool cand, art_exit;
+struct K3Args {
+  T* tab;
+  int M, N;
+  int32_t* basis;
+  uint8_t* at_upper;
+  const uint8_t* cm1;
+  const uint8_t* cm2;
+  const int32_t* phase;
+  const int32_t* status;
+  const uint8_t* bland;
+  T* w;
+  const T* ub;
+  T* ub_B;
+  uint8_t* is_art_row;
+  const uint8_t* art_mask;
+  T tol;
+  int devex, with_art;
+  int32_t* s_out;
+  int32_t* r_out;
+  uint8_t* opt_out;
+  uint8_t* unb_out;
+  uint8_t* mov_out;
 };
 
+// What warp 0's decision hands to the block.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_pivot_step_bounded_kernel(
-    T* __restrict__ tab, int M, int N, int32_t* __restrict__ basis,
-    uint8_t* __restrict__ at_upper, const uint8_t* __restrict__ cm1,
-    const uint8_t* __restrict__ cm2, const int32_t* __restrict__ phase,
-    const int32_t* __restrict__ status, const uint8_t* __restrict__ bland,
-    T* __restrict__ w, const T* __restrict__ ub, T* __restrict__ ub_B,
-    uint8_t* __restrict__ is_art_row, const uint8_t* __restrict__ art_mask,
-    T tol, int devex, int with_art, int32_t* __restrict__ s_out,
-    int32_t* __restrict__ r_out, uint8_t* __restrict__ opt_out,
-    uint8_t* __restrict__ unb_out, uint8_t* __restrict__ mov_out,
-    T* __restrict__ scratch) {
+struct K3Shared {
+  Slots<T> sl;
+  int s, r, j_out;
+  bool active, flip, leave_up, from_up;
+  T ub_s, theta_safe;
+};
+
+// Row flags of the ratio test.
+constexpr uint8_t kCand = 1, kArtExit = 2, kLeaveUp = 4;
+
+// The step of instance b, deciding from `src`: the staged tile (st.on) or
+// the instance in global memory.
+template <typename T>
+__device__ __forceinline__ void k3_instance(const K3Args<T>& a, int b,
+                                            const Head<T>& h, const T* src,
+                                            const Stage& st,
+                                            const Scratch<T>& sc,
+                                            K3Shared<T>& sh) {
   using A = Arith<T>;
-  __shared__ T sh_t[kWarps];
-  __shared__ int sh_i[kWarps];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int R = M - 1;  // constraint rows
-  const T inf = A::inf();
-  T* Tb = tab + (size_t)b * M * N;
-  int32_t* basis_b = basis + (size_t)b * R;
-  uint8_t* at_b = at_upper + (size_t)b * (N - 1);
-  T* wb = w + (size_t)b * N;
-  const T* ub_b = ub + (size_t)b * (N - 1);
-  T* ubB_b = ub_B + (size_t)b * R;
-  uint8_t* art_row_b = is_art_row + (size_t)b * R;
-  T* col = scratch + (size_t)b * (M + N);  // pivot column, M
-  T* prow = col + M;                        // normalised pivot row, N
-  const bool in_p1 = phase[b] == 1;
-  const bool live = status[b] == kRunning;
-  const bool use_bland = bland[b] != 0;
-  const uint8_t* cm = (in_p1 ? cm1 : cm2) + (size_t)b * N;
-  const T* obj = Tb + (size_t)R * N;
+  const int M = a.M, N = a.N, R = M - 1;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const T inf = A::inf(), tol = a.tol;
+  T* Tb = a.tab + (size_t)b * M * N;
+  int32_t* basis_b = a.basis + (size_t)b * R;
+  uint8_t* at_b = a.at_upper + (size_t)b * (N - 1);
+  T* wb = a.w + (size_t)b * N;
+  const T* ub_b = a.ub + (size_t)b * (N - 1);
+  T* ubB_b = a.ub_B + (size_t)b * R;
+  uint8_t* art_row_b = a.is_art_row + (size_t)b * R;
+  const bool live = h.live, in_p1 = h.in_p1, use_bland = h.bland;
+  const bool art_rows = a.with_art && !in_p1;
+  const uint8_t* cm = (in_p1 ? a.cm1 : a.cm2) + (size_t)b * N;
+
+  // Loaded while the tile is in flight: this thread's first lane for
+  // pricing, warp 0's first row for the ratio test.
+  const int j0 = tid;
+  bool valid0 = false, up0 = false;
+  T w0 = T(1);
+  if (j0 < N) {
+    valid0 = cm[j0] != 0;
+    up0 = j0 < N - 1 && at_b[j0] != 0;
+    if (a.devex && live) w0 = wb[j0];
+  }
+  T ubB0 = T(0);
+  bool art0 = false;
+  int basis0 = kIntMax;
+  if (tid < 32 && lane < R) {
+    ubB0 = ubB_b[lane];
+    if (art_rows) art0 = art_row_b[lane] != 0;
+    if (use_bland || live) basis0 = basis_b[lane];
+  }
+  stage_wait(st);
+  const T* obj = src + (size_t)R * N;
 
   // ---- two-sided pricing: entering column s -----------------------------
-  auto at_up = [&](int j) -> bool { return j < N - 1 && at_b[j] != 0; };
-  auto price = [&](int j, bool* elig) -> T {
-    const bool valid = cm[j] != 0;
-    const T rc = valid ? obj[j] : T(0);
-    *elig = valid && (at_up(j) ? rc > tol : rc < -tol);
-    if (!*elig) return -inf;
-    const T viol = A::abs(rc);
-    return devex ? A::div(A::mul(viol, viol), wb[j]) : viol;
-  };
-  T ext = -inf;
-  int first_elig = kIntMax;
+  T best = -inf;
+  int s_price = kIntMax, s_bland = kIntMax;
   for (int j = tid; j < N; j += kThreads) {
-    bool elig;
-    ext = nan_max(ext, price(j, &elig));
-    if (elig && j < first_elig) first_elig = j;
+    const bool first = j == j0;
+    const bool valid = first ? valid0 : cm[j] != 0;
+    const bool up = first ? up0 : (j < N - 1 && at_b[j] != 0);
+    const T rc = valid ? (first ? h.obj0 : obj[j]) : T(0);
+    const bool elig = valid && (up ? rc > tol : rc < -tol);
+    T score = -inf;
+    if (elig) {
+      const T viol = A::abs(rc);
+      score = a.devex
+                  ? A::div(A::mul(viol, viol), first && live ? w0 : wb[j])
+                  : viol;
+      if (j < s_bland) s_bland = j;
+    }
+    arg_merge<true>(best, s_price, score, j);
   }
-  ext = block_reduce(ext, MaxF(), sh_t);
-  const int s_bland = block_reduce(first_elig, MinI(), sh_i);
-  int first_ext = kIntMax;
-  for (int j = tid; j < N; j += kThreads) {
-    bool elig;
-    if (price(j, &elig) == ext && j < first_ext) first_ext = j;
-  }
-  const int s_price = block_reduce(first_ext, MinI(), sh_i);
+  block_price<true>(best, s_price, s_bland, sh.sl);
   int s = use_bland ? s_bland : s_price;
   s = s < 0 ? 0 : (s > N - 2 ? N - 2 : s);
   const bool optimal = s_bland == kIntMax;
-  const bool s_from_up = at_up(s);
-  const T sigma = s_from_up ? T(-1) : T(1);
-  const T ub_s = ub_b[s];
+
+  // ---- bounded ratio test: warp 0, one row a lane -----------------------
+  if (tid < 32) {
+    const bool from_up = at_b[s] != 0;
+    const T sigma = from_up ? T(-1) : T(1);
+    const T ub_s = ub_b[s];
+    T min_row = inf, theta_max = inf;
+    for (int i = lane; i < R; i += 32) {
+      const bool first = i == lane;
+      const T c = src[(size_t)i * N + s];
+      const T xB = src[(size_t)i * N + N - 1];
+      const T ubB = first ? ubB0 : ubB_b[i];
+      const bool art = art_rows && (first ? art0 : art_row_b[i] != 0);
+      sc.col[i] = c;
+      sc.ubB[i] = ubB;
+      const T dd = A::mul(sigma, c);
+      const bool pos = dd > tol;
+      const bool neg = dd < -tol && A::isfinite(ubB);
+      const T span = A::add(ubB, -xB);
+      const T xB_c = clamp0(xB);
+      const T span_c = clamp0(span);
+      T t_lo = pos ? A::div(xB_c, dd) : inf;
+      const T t_hi = neg ? A::div(span_c, -dd) : inf;
+      const bool art_exit = art && A::abs(dd) > tol;
+      if (art_exit) t_lo = T(0);
+      const T t_row = nan_min(t_lo, t_hi);
+      const T rel_lo =
+          pos ? A::div(A::fma(A::add(T(1), A::abs(xB)), tol, xB_c), dd) : inf;
+      const T rel_hi =
+          neg ? A::div(A::add(span_c, A::mul(tol, A::add(T(1), A::abs(span)))),
+                       -dd)
+              : inf;
+      min_row = nan_min(min_row, t_row);
+      theta_max = nan_min(theta_max, nan_min(rel_lo, rel_hi));
+      sc.ratio[i] = t_row;
+      sc.hv[i] = art_exit ? A::add(A::abs(dd), T(1e30)) : A::abs(dd);
+      sc.flags[i] = ((pos || neg || art_exit) ? kCand : 0) |
+                    (art_exit ? kArtExit : 0) | (t_hi < t_lo ? kLeaveUp : 0);
+    }
+    if (lane == 0) sc.col[R] = obj[s];
+    min_row = warp_min(min_row);
+    theta_max = warp_min(theta_max);
+    const T theta = nan_min(min_row, ub_s);
+    const bool unbounded = !optimal && A::isinf(theta);
+    const bool flip = !optimal && !unbounded && ub_s <= min_row;
+    // Harris over both limits; Bland keeps basis-index ties.
+    const T near_max = A::add(
+        min_row, A::mul(T(64) * A::kEps, A::add(T(1), A::abs(min_row))));
+    T h_max = -inf;
+    int r_harris = kIntMax, key_min = kIntMax, r_bland = kIntMax;
+    for (int i = lane; i < R; i += 32) {
+      const uint8_t fl = sc.flags[i];
+      const bool cand = (fl & kCand) != 0;
+      const T t_row = sc.ratio[i];
+      const bool window = (cand && t_row <= theta_max) || (fl & kArtExit);
+      arg_merge<true>(h_max, r_harris, window ? sc.hv[i] : -inf, i);
+      if (use_bland) {
+        const int key = cand && t_row <= near_max
+                            ? (i == lane ? basis0 : basis_b[i])
+                            : kIntMax;
+        arg_merge<false>(key_min, r_bland, key, i);
+      }
+    }
+    warp_arg<true>(h_max, r_harris);
+    warp_arg<false>(key_min, r_bland);
+    int r = use_bland ? r_bland : r_harris;
+    r = r < 0 ? 0 : (r > M - 2 ? M - 2 : r);
+    int j_out = __shfl_sync(0xffffffffu, basis0, r & 31);
+    __syncwarp();
+    const bool active = live && !optimal && !unbounded;
+    if (lane == 0) {
+      if (r >= 32 && active) j_out = basis_b[r];
+      a.s_out[b] = s;
+      a.r_out[b] = r;
+      a.opt_out[b] = optimal;
+      a.unb_out[b] = unbounded;
+      a.mov_out[b] = active;
+      sh.s = s;
+      sh.r = r;
+      sh.j_out = j_out;
+      sh.active = active;
+      sh.flip = flip;
+      sh.leave_up = (sc.flags[r] & kLeaveUp) != 0;
+      sh.from_up = from_up;
+      sh.ub_s = ub_s;
+      sh.theta_safe = A::isfinite(theta) ? theta : T(0);
+    }
+  }
+  __syncthreads();
+  if (!sh.active) return;  // the same for every thread of the block
+  const int r = sh.r;
+  const T sigma = sh.from_up ? T(-1) : T(1);
+  const T ub_s = sh.ub_s;
   const T ub_s_safe = A::isfinite(ub_s) ? ub_s : T(0);
-
-  // ---- bounded ratio test over the constraint rows ----------------------
-  auto row = [&](int i) -> BoundedRow<T> {
-    BoundedRow<T> q;
-    q.dd = A::mul(sigma, Tb[(size_t)i * N + s]);
-    const T xB = Tb[(size_t)i * N + N - 1];
-    const T ubB = ubB_b[i];
-    const bool pos = q.dd > tol;
-    const bool neg = q.dd < -tol && A::isfinite(ubB);
-    const T span = A::add(ubB, -xB);
-    const T xB_c = clamp0(xB);
-    const T span_c = clamp0(span);
-    q.t_lo = pos ? A::div(xB_c, q.dd) : inf;
-    q.t_hi = neg ? A::div(span_c, -q.dd) : inf;
-    q.art_exit = with_art && !in_p1 && art_row_b[i] != 0 &&
-                 A::abs(q.dd) > tol;
-    if (q.art_exit) q.t_lo = T(0);
-    q.cand = pos || neg || q.art_exit;
-    q.t_row = nan_min(q.t_lo, q.t_hi);
-    const T rel_lo =
-        pos ? A::div(A::fma(A::add(T(1), A::abs(xB)), tol, xB_c), q.dd) : inf;
-    const T rel_hi =
-        neg ? A::div(A::add(span_c, A::mul(tol, A::add(T(1), A::abs(span)))),
-                     -q.dd)
-            : inf;
-    q.rel = nan_min(rel_lo, rel_hi);
-    return q;
-  };
-  T min_row = inf, theta_max = inf;
-  for (int i = tid; i < R; i += kThreads) {
-    const BoundedRow<T> q = row(i);
-    col[i] = Tb[(size_t)i * N + s];
-    min_row = nan_min(min_row, q.t_row);
-    theta_max = nan_min(theta_max, q.rel);
-  }
-  if (tid == 0) col[R] = obj[s];
-  min_row = block_reduce(min_row, MinF(), sh_t);
-  theta_max = block_reduce(theta_max, MinF(), sh_t);
-  const T theta = nan_min(min_row, ub_s);
-  const bool unbounded = !optimal && A::isinf(theta);
-  const bool flip = !optimal && !unbounded && ub_s <= min_row;
-  const T theta_safe = A::isfinite(theta) ? theta : T(0);
-
-  // Harris over both limits; Bland keeps basis-index ties.
-  const T near_max = A::add(
-      min_row, A::mul(T(64) * A::kEps, A::add(T(1), A::abs(min_row))));
-  auto harris = [&](const BoundedRow<T>& q) -> T {
-    if (!((q.cand && q.t_row <= theta_max) || q.art_exit)) return -inf;
-    return q.art_exit ? A::add(A::abs(q.dd), T(1e30)) : A::abs(q.dd);
-  };
-  auto tie_key = [&](int i, const BoundedRow<T>& q) -> int {
-    return (q.cand && q.t_row <= near_max) ? basis_b[i] : kIntMax;
-  };
-  T h_max = -inf;
-  int key_min = kIntMax;
-  for (int i = tid; i < R; i += kThreads) {
-    const BoundedRow<T> q = row(i);
-    h_max = nan_max(h_max, harris(q));
-    const int key = tie_key(i, q);
-    if (key < key_min) key_min = key;
-  }
-  h_max = block_reduce(h_max, MaxF(), sh_t);
-  key_min = block_reduce(key_min, MinI(), sh_i);
-  int r_harris = kIntMax, r_bland = kIntMax;
-  for (int i = tid; i < R; i += kThreads) {
-    const BoundedRow<T> q = row(i);
-    if (harris(q) == h_max && i < r_harris) r_harris = i;
-    if (tie_key(i, q) == key_min && i < r_bland) r_bland = i;
-  }
-  r_harris = block_reduce(r_harris, MinI(), sh_i);
-  r_bland = block_reduce(r_bland, MinI(), sh_i);
-  int r = use_bland ? r_bland : r_harris;
-  r = r < 0 ? 0 : (r > M - 2 ? M - 2 : r);
-  const BoundedRow<T> qr = row(r);
-  const bool leave_up = qr.t_hi < qr.t_lo;
-
-  const bool active = live && !optimal && !unbounded;
-  const bool do_flip = active && flip;
-  if (tid == 0) {
-    s_out[b] = s;
-    r_out[b] = r;
-    opt_out[b] = optimal;
-    unb_out[b] = unbounded;
-    mov_out[b] = active;
-  }
-  if (!active) return;  // the same for every thread of the block
+  const T* col = sc.col;
+  const T* ubB = sc.ubB;
 
   // ---- bound flip: the RHS column alone ---------------------------------
-  if (do_flip) {
+  if (sh.flip) {
     for (int i = tid; i < M; i += kThreads) {
-      T* cell = Tb + (size_t)i * N + N - 1;
-      T x = A::fma(-A::mul(sigma, col[i]), ub_s_safe, *cell);
-      if (i < R) x = nan_min(ubB_b[i], clamp0(x));
-      *cell = x;
+      T x = A::fma(-A::mul(sigma, col[i]), ub_s_safe,
+                   src[(size_t)i * N + N - 1]);
+      if (i < R) x = nan_min(ubB[i], clamp0(x));
+      Tb[(size_t)i * N + N - 1] = x;
     }
     if (tid == 0) at_b[s] ^= 1;
     return;
   }
 
-  // ---- pivot: gather the normalised pivot row (col is complete) ---------
+  // ---- pivot: the normalised row and the Devex weights ------------------
   const T pivot = col[r];
   const T safe = A::abs(pivot) > T(0) ? pivot : T(1);
-  for (int j = tid; j < N; j += kThreads)
-    prow[j] = A::div(Tb[(size_t)r * N + j], safe);
-  __syncthreads();
-
-  const int j_out = basis_b[r];
-  if (devex) {
-    const T w_s = wb[s];
-    auto new_w = [&](int j) -> T {
-      if (j == s) return T(1);
-      if (j == j_out) return nan_max(w_s, T(1));
-      return nan_max(wb[j], A::mul(A::mul(prow[j], prow[j]), w_s));
-    };
-    T w_max = -inf;
-    for (int j = tid; j < N; j += kThreads) w_max = nan_max(w_max, new_w(j));
-    w_max = block_reduce(w_max, MaxF(), sh_t);  // every w_s read before
-    const bool reset = w_max > T(1e8);
-    for (int j = tid; j < N; j += kThreads) wb[j] = reset ? T(1) : new_w(j);
-  }
-
-  // ---- rank-1 update and the RHS column: one read and one write of T ----
-  const T x_enter = s_from_up ? A::add(ub_s_safe, -theta_safe) : theta_safe;
+  const int j_out = sh.j_out;
+  const T w_s = a.devex ? wb[s] : T(0);
+  auto new_w = [&](int j, T wj, T p) -> T {
+    if (j == s) return T(1);
+    if (j == j_out) return nan_max(w_s, T(1));
+    return nan_max(wj, A::mul(A::mul(p, p), w_s));
+  };
+  T w_max = -inf, nw0 = T(1);
   for (int j = tid; j < N; j += kThreads) {
-    const T p = prow[j];
-    for (int i = 0; i < M; ++i) {
-      T* cell = Tb + (size_t)i * N + j;
-      T out;
-      if (j == N - 1) {
-        out = i == r ? x_enter
-                     : A::fma(-A::mul(sigma, col[i]), theta_safe, *cell);
-        if (i < R) out = nan_min(i == r ? ub_s : ubB_b[i], clamp0(out));
-      } else if (j == s) {
-        out = i == r ? T(1) : T(0);
-      } else if (i == r) {
-        out = p;
-      } else {
-        out = A::fma(-col[i], p, *cell);
-      }
-      *cell = out;
+    const T p = A::div(src[(size_t)r * N + j], safe);
+    sc.prow[j] = p;
+    if (a.devex) {
+      const T nw = new_w(j, j == j0 ? w0 : wb[j], p);
+      if (j == j0) nw0 = nw;
+      w_max = nan_max(w_max, nw);
     }
   }
-  __syncthreads();
+  if (a.devex) {
+    // Every w_s is read before this barrier, every weight written after.
+    const bool reset = block_max(w_max, sh.sl.wmax) > T(1e8);
+    for (int j = tid; j < N; j += kThreads)
+      wb[j] = reset ? T(1) : (j == j0 ? nw0 : new_w(j, wb[j], sc.prow[j]));
+  } else {
+    __syncthreads();
+  }
+
+  // ---- the tile: rank-1 update, the RHS column, one write ---------------
+  const T theta_safe = sh.theta_safe;
+  const T x_enter = sh.from_up ? A::add(ub_s_safe, -theta_safe) : theta_safe;
+  const T* prow = sc.prow;
+  auto f = [&](int i, int j, T t) -> T {
+    if (j == N - 1) {
+      T out = i == r ? x_enter : A::fma(-A::mul(sigma, col[i]), theta_safe, t);
+      if (i < R) out = nan_min(i == r ? ub_s : ubB[i], clamp0(out));
+      return out;
+    }
+    if (j == s) return i == r ? T(1) : T(0);
+    if (i == r) return prow[j];
+    return A::fma(-col[i], prow[j], t);
+  };
+  if (st.on)
+    write_back<false>(Tb, src, M, N, f);
+  else
+    write_back<true>(Tb, Tb, M, N, f);
   if (tid == 0) {
-    if (j_out >= 0 && j_out < N - 1) at_b[j_out] = leave_up;
+    if (j_out >= 0 && j_out < N - 1) at_b[j_out] = sh.leave_up;
     at_b[s] = 0;
     ubB_b[r] = ub_s;
-    if (with_art) art_row_b[r] = art_mask[(size_t)b * N + s];
+    if (a.with_art) art_row_b[r] = a.art_mask[(size_t)b * N + s];
     basis_b[r] = s;
   }
 }
 
 template <typename T>
-int launch(T* tab, int64_t B, int64_t M, int64_t N, int32_t* basis,
-           uint8_t* at_upper, const uint8_t* cm1, const uint8_t* cm2,
-           const int32_t* phase, const int32_t* status, const uint8_t* bland,
-           T* w, const T* ub, T* ub_B, uint8_t* is_art_row,
-           const uint8_t* art_mask, T tol, int devex, int with_art,
-           int32_t* s_out, int32_t* r_out, uint8_t* opt_out,
-           uint8_t* unb_out, uint8_t* mov_out, T* scratch, void* stream) {
-  if (B < 1 || B > 2147483647LL || M < 2 || N < 2 || M > (1 << 30) ||
-      N > (1 << 30))
+__global__ void __launch_bounds__(kThreads)
+    fused_pivot_step_bounded_kernel(const K3Args<T> a, const Layout L,
+                                    int stage) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bar;
+  __shared__ K3Shared<T> sh;
+  const int b = blockIdx.x;
+  T* Tb = a.tab + (size_t)b * a.M * a.N;
+  const Head<T> h = load_head(a.status, a.phase, a.bland, Tb, a.M, a.N, b);
+  Stage st{stage != 0 && h.live, false, &bar, 0};
+  if (st.on && threadIdx.x == 0) mbar_init(&bar);
+  __syncthreads();
+  const Scratch<T> sc = scratch<T>(smem, L);
+  const T* src =
+      st.on ? stage_begin(sc.tile, Tb, (int64_t)a.M * a.N, st) : Tb;
+  k3_instance(a, b, h, src, st, sc, sh);
+}
+
+template <typename T>
+int launch(const K3Args<T>& a, int64_t B, void* stream) {
+  if (B < 1 || B > 2147483647LL || a.M < 2 || a.N < 2 || a.M > (1 << 30) ||
+      a.N > (1 << 30))
     return (int)cudaErrorInvalidValue;
+  const bool stage =
+      (uint64_t)a.M * (uint64_t)a.N * sizeof(T) <= (uint64_t)kStageMaxBytes;
+  const Layout L = layout(a.M, a.N, sizeof(T), stage);
+  if (L.total > 0x7fffffffULL) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      allow_shared_memory(fused_pivot_step_bounded_kernel<T>);
+  if (e != cudaSuccess) return (int)e;
   fused_pivot_step_bounded_kernel<T>
-      <<<(unsigned)B, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-          tab, (int)M, (int)N, basis, at_upper, cm1, cm2, phase, status,
-          bland, w, ub, ub_B, is_art_row, art_mask, tol, devex, with_art,
-          s_out, r_out, opt_out, unb_out, mov_out, scratch);
+      <<<(unsigned)B, kThreads, (size_t)L.total,
+         reinterpret_cast<cudaStream_t>(stream)>>>(a, L, stage ? 1 : 0);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int k3(T* tab, int64_t B, int64_t M, int64_t N, int32_t* basis,
+       uint8_t* at_upper, const uint8_t* cm1, const uint8_t* cm2,
+       const int32_t* phase, const int32_t* status, const uint8_t* bland,
+       T* w, const T* ub, T* ub_B, uint8_t* is_art_row,
+       const uint8_t* art_mask, T tol, int devex, int with_art,
+       int32_t* s_out, int32_t* r_out, uint8_t* opt_out, uint8_t* unb_out,
+       uint8_t* mov_out, void* stream) {
+  if (M < 2 || N < 2 || M > (1 << 30) || N > (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  const K3Args<T> a{tab,  (int)M,   (int)N, basis,   at_upper, cm1,
+                    cm2,  phase,    status, bland,   w,        ub,
+                    ub_B, is_art_row, art_mask, tol, devex,    with_art,
+                    s_out, r_out,   opt_out, unb_out, mov_out};
+  return launch<T>(a, B, stream);
 }
 
 }  // namespace
@@ -316,8 +417,8 @@ int launch(T* tab, int64_t B, int64_t M, int64_t N, int32_t* basis,
 // Every pointer is a contiguous device buffer: tab (B, M, N), basis
 // (B, M-1) int32, at_upper (B, N-1) bool, cm1/cm2 (B, N) bool, phase/status
 // (B,) int32, bland (B,) bool, w (B, N), ub (B, N-1), ub_B (B, M-1),
-// is_art_row (B, M-1) bool, art_mask (B, N) bool, the outputs (B,), scratch
-// (B, M + N) (the Python wrapper checks).
+// is_art_row (B, M-1) bool, art_mask (B, N) bool, the outputs (B,) (the
+// Python wrapper checks).
 extern "C" int k3_fused_pivot_step_bounded_f32(
     float* tab, int64_t B, int64_t M, int64_t N, int32_t* basis,
     uint8_t* at_upper, const uint8_t* cm1, const uint8_t* cm2,
@@ -325,11 +426,10 @@ extern "C" int k3_fused_pivot_step_bounded_f32(
     float* w, const float* ub, float* ub_B, uint8_t* is_art_row,
     const uint8_t* art_mask, float tol, int devex, int with_art,
     int32_t* s_out, int32_t* r_out, uint8_t* opt_out, uint8_t* unb_out,
-    uint8_t* mov_out, float* scratch, void* stream) {
-  return launch<float>(tab, B, M, N, basis, at_upper, cm1, cm2, phase,
-                       status, bland, w, ub, ub_B, is_art_row, art_mask, tol,
-                       devex, with_art, s_out, r_out, opt_out, unb_out,
-                       mov_out, scratch, stream);
+    uint8_t* mov_out, void* stream) {
+  return k3<float>(tab, B, M, N, basis, at_upper, cm1, cm2, phase, status,
+                   bland, w, ub, ub_B, is_art_row, art_mask, tol, devex,
+                   with_art, s_out, r_out, opt_out, unb_out, mov_out, stream);
 }
 
 extern "C" int k3_fused_pivot_step_bounded_f64(
@@ -339,9 +439,9 @@ extern "C" int k3_fused_pivot_step_bounded_f64(
     double* w, const double* ub, double* ub_B, uint8_t* is_art_row,
     const uint8_t* art_mask, double tol, int devex, int with_art,
     int32_t* s_out, int32_t* r_out, uint8_t* opt_out, uint8_t* unb_out,
-    uint8_t* mov_out, double* scratch, void* stream) {
-  return launch<double>(tab, B, M, N, basis, at_upper, cm1, cm2, phase,
-                        status, bland, w, ub, ub_B, is_art_row, art_mask,
-                        tol, devex, with_art, s_out, r_out, opt_out, unb_out,
-                        mov_out, scratch, stream);
+    uint8_t* mov_out, void* stream) {
+  return k3<double>(tab, B, M, N, basis, at_upper, cm1, cm2, phase, status,
+                    bland, w, ub, ub_B, is_art_row, art_mask, tol, devex,
+                    with_art, s_out, r_out, opt_out, unb_out, mov_out,
+                    stream);
 }

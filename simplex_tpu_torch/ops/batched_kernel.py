@@ -12,7 +12,8 @@ smallest-basis-index tie-break, the masked rank-1 update with the clamped
 RHS lane, the Devex weight update, and the basis write.  Every function
 here updates ``T``, ``basis``, the weights (and K3's bound state) IN PLACE
 (each instance's data is owned by one CUDA block, so nothing is read after
-another block wrote it):
+another block wrote it; the kernels stage an instance's tile in shared
+memory, decide there and write it back once, and need no scratch):
 
 * :func:`fused_pivot_step_` and :func:`fused_pivot_step_bounded_` launch
   the hand-written kernels (``csrc/fused_pivot_step.cu``,
@@ -252,11 +253,8 @@ def fused_pivot_step_(T, basis, cm1, cm2, phase, status, use_bland,
     lib = kernels.library()
     B, M, N = T.shape
     dev = T.device
-    s = torch.empty(B, dtype=torch.int32, device=dev)
-    r = torch.empty(B, dtype=torch.int32, device=dev)
+    sr = torch.empty((2, B), dtype=torch.int32, device=dev)
     flags = torch.empty((3, B), dtype=torch.bool, device=dev)
-    col = torch.empty((B, M), dtype=T.dtype, device=dev)
-    prow = torch.empty((B, N), dtype=T.dtype, device=dev)
     fn = (lib.k2_fused_pivot_step_f32 if T.dtype == torch.float32
           else lib.k2_fused_pivot_step_f64)
     with torch.cuda.device(dev):
@@ -264,10 +262,9 @@ def fused_pivot_step_(T, basis, cm1, cm2, phase, status, use_bland,
         err = fn(T.data_ptr(), B, M, N, basis.data_ptr(), cm1_.data_ptr(),
                  cm2_.data_ptr(), phase_.data_ptr(), status_.data_ptr(),
                  bland.data_ptr(), w.data_ptr(), float(tol),
-                 int(bool(devex)), s.data_ptr(), r.data_ptr(),
+                 int(bool(devex)), sr[0].data_ptr(), sr[1].data_ptr(),
                  flags[0].data_ptr(), flags[1].data_ptr(),
-                 flags[2].data_ptr(), col.data_ptr(), prow.data_ptr(),
-                 stream)
+                 flags[2].data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"K2 fused_pivot_step launch failed: CUDA error {err}")
@@ -275,8 +272,8 @@ def fused_pivot_step_(T, basis, cm1, cm2, phase, status, use_bland,
     if padded:
         weights.copy_(w[:, :-1])
         w = weights
-    return (T, basis, w if weights is not None else None, s, r, flags[0],
-            flags[1], flags[2])
+    return (T, basis, w if weights is not None else None, sr[0], sr[1],
+            flags[0], flags[1], flags[2])
 
 
 # --------------------------------------------------------------------------
@@ -533,7 +530,6 @@ def fused_pivot_step_bounded_(T, basis, at_upper, cm1, cm2, phase, status,
     dev = T.device
     sr = torch.empty((2, B), dtype=torch.int32, device=dev)
     flags = torch.empty((3, B), dtype=torch.bool, device=dev)
-    scratch = torch.empty((B, M + N), dtype=T.dtype, device=dev)
     fn = (lib.k3_fused_pivot_step_bounded_f32 if T.dtype == torch.float32
           else lib.k3_fused_pivot_step_bounded_f64)
     with torch.cuda.device(dev):
@@ -545,7 +541,7 @@ def fused_pivot_step_bounded_(T, basis, at_upper, cm1, cm2, phase, status,
                  is_art_row.data_ptr(), art.data_ptr(), float(tol),
                  int(bool(devex)), int(bool(with_art)), sr[0].data_ptr(),
                  sr[1].data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
-                 flags[2].data_ptr(), scratch.data_ptr(), stream)
+                 flags[2].data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"K3 fused_pivot_step_bounded launch failed: CUDA error {err}")

@@ -94,38 +94,51 @@ def build() -> str:
     return out
 
 
+_P, _I64, _U64, _I32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
+                        ctypes.c_int)
+
+
+def _k2(real):
+    # tab, B, M, N, basis, cm1, cm2, phase, status, bland, w, tol, devex,
+    # s, r, optimal, unbounded, did_pivot, stream
+    return [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, real, _I32,
+            _P, _P, _P, _P, _P, _P]
+
+
+def _k3(real):
+    # tab, B, M, N, basis, at_upper, cm1, cm2, phase, status, bland, w, ub,
+    # ub_B, is_art_row, art_mask, tol, devex, with_art, s, r, optimal,
+    # unbounded, moving, stream
+    return [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, real, _I32, _I32, _P, _P, _P, _P, _P, _P]
+
+
+# Every C entry point of csrc/*.cu and its argument types, in order; each
+# returns a CUDA error code (int).  tests/test_torch_kernel_abi.py holds
+# this table to the sources' signatures.
+ARGTYPES = {
+    # tab, R, W, magic, shift, r, s, do_pivot, clamp_rhs, col, prow, stream
+    "k1_pivot_update_f32": [_P, _I64, _I64, _U64, _I32, _P, _P, _P, _I32,
+                            _P, _P, _P],
+    "k1_pivot_update_f64": [_P, _I64, _I64, _U64, _I32, _P, _P, _P, _I32,
+                            _P, _P, _P],
+    "k2_fused_pivot_step_f32": _k2(ctypes.c_float),
+    "k2_fused_pivot_step_f64": _k2(ctypes.c_double),
+    "k3_fused_pivot_step_bounded_f32": _k3(ctypes.c_float),
+    "k3_fused_pivot_step_bounded_f64": _k3(ctypes.c_double),
+    # x, out, numel, stream
+    "k4_stream_copy_f32": [_P, _P, _I64, _P],
+    "k4_stream_copy_f64": [_P, _P, _I64, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The built kernel library, with every entry point's C types declared."""
+    """The built kernel library, with every entry point's C types declared
+    (:data:`ARGTYPES`)."""
     lib = ctypes.CDLL(build())
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in ("k1_pivot_update_f32", "k1_pivot_update_f64"):
+    for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
-        # tab, R, W, magic, shift, r, s, do_pivot, clamp_rhs, col, prow,
-        # stream
-        fn.argtypes = [p, i64, i64, ctypes.c_uint64, i32, p, p, p, i32, p, p,
-                       p]
-        fn.restype = i32
-    for name, real in (("k2_fused_pivot_step_f32", ctypes.c_float),
-                       ("k2_fused_pivot_step_f64", ctypes.c_double)):
-        fn = getattr(lib, name)
-        # tab, B, M, N, basis, cm1, cm2, phase, status, bland, w, tol, devex,
-        # s, r, optimal, unbounded, did_pivot, col, prow, stream
-        fn.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p, real, i32,
-                       p, p, p, p, p, p, p, p]
-        fn.restype = i32
-    for name, real in (("k3_fused_pivot_step_bounded_f32", ctypes.c_float),
-                       ("k3_fused_pivot_step_bounded_f64", ctypes.c_double)):
-        fn = getattr(lib, name)
-        # tab, B, M, N, basis, at_upper, cm1, cm2, phase, status, bland, w,
-        # ub, ub_B, is_art_row, art_mask, tol, devex, with_art, s, r,
-        # optimal, unbounded, moving, scratch, stream
-        fn.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p, p, p, p, p, p,
-                       real, i32, i32, p, p, p, p, p, p, p]
-        fn.restype = i32
-    for name in ("k4_stream_copy_f32", "k4_stream_copy_f64"):
-        fn = getattr(lib, name)
-        # x, out, numel, stream
-        fn.argtypes = [p, p, i64, p]
-        fn.restype = i32
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -34,15 +34,18 @@ STEPS = 6
 ULPS = 2
 
 
-def _state(seed, mixed, B=12, m=9, n=13, dtype=np.float32, bland="half"):
+def _state(seed, mixed, B=12, m=9, n=13, dtype=np.float32, bland="half",
+           pad=(8, 128)):
     """Kernel inputs as numpy arrays: with ``mixed``, every third instance
     keeps all-``<=`` rows (phase 2) and the others start in phase 1; every
-    fifth instance is not running."""
+    fifth instance is not running.  ``pad``: the compiler's row and column
+    padding ((1, 1) leaves the tableau at its own size)."""
     ops = np.full((B, m), -1)
     if mixed:
         ops[np.arange(B) % 3 != 0] = np.resize(MIXED_OPS, m)
     c, A, b, _ = random_batch(seed, B, m, n)
-    cb = compile_batch_uniform(c, A, b, ops, maximize=True, dtype=dtype)
+    cb = compile_batch_uniform(c, A, b, ops, maximize=True, dtype=dtype,
+                               row_pad=pad[0], col_pad=pad[1])
     zero = np.zeros((B, 1), bool)
     status = np.full(B, -1, np.int32)
     status[::5] = 0
@@ -293,17 +296,45 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(name):
                              kw["w"], devex=True)
 
 
+# The kernel against its twin on the card: the main path's shapes; tiles
+# above the 64 KB staging budget of csrc/batched_step_common.cuh (60x100 in
+# float64, 100x150 in float32, 200x300 in float64: the update streams from
+# global memory); and unpadded tableaus whose M*N*sizeof(T) is not a
+# multiple of 16 bytes, so every instance but the first starts off a
+# 16-byte boundary (cp.async staging, scalar head and tail).
+GPU_CASES = [((16, 9, 13), np.float32, True, (8, 128)),
+             ((16, 9, 13), np.float64, True, (8, 128)),
+             ((64, 30, 50), np.float32, True, (8, 128)),
+             ((8, 60, 100), np.float32, True, (8, 128)),
+             ((8, 60, 100), np.float64, True, (8, 128)),
+             ((4, 100, 150), np.float32, True, (8, 128)),
+             ((4, 200, 300), np.float64, True, (8, 128)),
+             ((16, 8, 12), np.float32, True, (1, 1)),
+             ((16, 8, 12), np.float64, True, (1, 1)),
+             ((16, 8, 14), np.float32, False, (1, 1))]
+
+
+def test_gpu_cases_cover_both_paths_and_odd_sizes():
+    """The ``gpu`` cases reach both sides of the staging budget and tiles
+    that are not a whole number of 16-byte vectors, in both dtypes."""
+    seen = set()
+    for (B, m, n), dtype, mixed, pad in GPU_CASES:
+        T = _state(14, mixed, B=B, m=m, n=n, dtype=dtype, pad=pad)["T"]
+        tile = T.shape[1] * T.shape[2] * T.itemsize
+        seen.add((np.dtype(dtype).name, tile > 64 * 1024, tile % 16 != 0))
+    for dt in ("float32", "float64"):
+        assert (dt, True, False) in seen and (dt, False, True) in seen \
+            and (dt, False, False) in seen, dt
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("devex", [False, True])
-@pytest.mark.parametrize("shape,dtype", [((16, 9, 13), np.float32),
-                                         ((16, 9, 13), np.float64),
-                                         ((64, 30, 50), np.float32),
-                                         ((8, 60, 100), np.float32)])
-def test_cuda_kernel_matches_twin(shape, dtype, devex):
+@pytest.mark.parametrize("shape,dtype,mixed,pad", GPU_CASES)
+def test_cuda_kernel_matches_twin(shape, dtype, mixed, pad, devex):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     B, m, n = shape
-    st = _torch(_state(14, True, B=B, m=m, n=n, dtype=dtype))
+    st = _torch(_state(14, mixed, B=B, m=m, n=n, dtype=dtype, pad=pad))
     k = {key: v.cuda() for key, v in st.items()}
     for step in range(STEPS):
         t = {key: v.clone() for key, v in k.items()}
@@ -316,5 +347,8 @@ def test_cuda_kernel_matches_twin(shape, dtype, devex):
                                       t["phase"], t["status"],
                                       t["use_bland"], t["w"], devex=devex)
         torch.cuda.synchronize()
-        _assert_step_equal([x.cpu().numpy() for x in ref],
-                           [x.cpu().numpy() for x in got], f"step {step}")
+        # Equal, not close: the kernel rounds as its twin does.
+        for name, a, b in zip(("T", "basis", "w", "s", "r", "optimal",
+                               "unbounded", "did_pivot"), ref, got):
+            np.testing.assert_array_equal(b.cpu().numpy(), a.cpu().numpy(),
+                                          err_msg=f"{name}, step {step}")

@@ -61,3 +61,10 @@ def test_stream_variants_tool_imports_no_jax():
     path = os.path.join(REPO, "tools", "stream_variants.py")
     with open(path, encoding="utf-8") as f:
         assert not _FORBIDDEN.search(f.read())
+
+
+def test_batched_variants_tool_imports_no_jax():
+    """The K2/K3 design comparison runs on the GPU machine too."""
+    path = os.path.join(REPO, "tools", "batched_variants.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.search(f.read())
