@@ -73,7 +73,23 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     times on the 10241^2 tableau against four streaming ceilings, two of
     them K4's), with its K1 and K4 launch counts and its whole ``detail``
     on one line; then every kernel's time against its bound at 3.35 TB/s
-    and against the same bytes at K4's measured in-place ceiling.
+    and against the same bytes at K4's measured in-place ceiling;
+14. MPS files and the revised engine on the card: the MPS text of
+    ``utils/mps.generate_netlib_adversarial`` for seeds 0-3 (netlib scale,
+    BOUNDS / RANGES / FR / MI) through ``cli.main(["solve", f, "--engine",
+    e, "--device", "cuda"])`` for every engine (auto, revised, dense,
+    host), each status equal to HiGHS's and each optimum within
+    1e-6 (1 + |z|), with the K1 launches of the dense runs; then
+    ``RevisedSimplexSolver`` on ``generate_netlib_style(1, REVISED_M,
+    REVISED_N, density=0.03)``, optimal, not escalated, within the gate of
+    HiGHS, at most one host read of the loop state a chunk, with its
+    pivots/s and, under ``torch.profiler``, the device busy share and the
+    share of the device time in ``linalg.solve_ex`` (the refactor);
+15. the web app (``web/app.py::init_app`` through its ``TestClient``) on
+    the card: ``GET /``, the max anchor through ``/new`` and ``/solve``
+    (Z = 9833.3333, K1 launched), ``/metrics`` with that solve's record,
+    ``/exportar-pdf``, an MPS upload to ``/load``, then the CLI's
+    ``export-pdf``.
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
@@ -1489,6 +1505,264 @@ def phase_pivot_rate(torch, pivot_kernel, sk, gpu):
     return d, k4
 
 
+def _mps_report(out):
+    """(engine, status, Z or None, pivots, seconds) of a printed MPS
+    report."""
+    import re
+
+    z = re.search(r"Z = (\S+)", out)
+    it = re.search(r"Iteraciones: (\d+)\s+tiempo: (\S+)s", out)
+    return (re.search(r"motor (\w+)\)", out).group(1),
+            int(re.search(r"Estado: (-?\d+)", out).group(1)),
+            float(z.group(1)) if z else None, int(it.group(1)),
+            float(it.group(2)))
+
+
+def phase_mps(torch, cli, pivot_kernel, tmpdir, gpu):
+    """Phase 14 (a): the adversarial netlib-scale MPS files through the
+    CLI's MPS branch, every engine, every verdict against HiGHS."""
+    import contextlib
+    import io
+
+    from simplex_tpu_torch.utils import mps
+
+    pivot_kernel.LAUNCHES = 0
+    for seed in range(4):
+        text = mps.generate_netlib_adversarial(seed)
+        path = os.path.join(tmpdir, f"adversarial{seed}.mps")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+        lp = mps.parse_mps(text)
+        st_ref, z_ref = _highs_bounded(lp.c, lp.A, lp.b, lp.ops,
+                                       lp.maximize, lp.lb, lp.ub)
+        parts = []
+        for engine in ("auto", "revised", "dense", "host"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["solve", path, "--engine", engine,
+                               "--device", "cuda"])
+            chosen, st, z, nit, secs = _mps_report(buf.getvalue())
+            check(st == st_ref, f"adversarial {seed} --engine {engine}: "
+                  f"status {st}, HiGHS {st_ref}")
+            check(rc == (0 if st == 0 else 1),
+                  f"adversarial {seed} --engine {engine}: rc {rc}")
+            if st == 0:
+                check(_gate(z_ref, z), f"adversarial {seed} --engine "
+                      f"{engine}: z={z!r} vs HiGHS {z_ref!r}")
+            parts.append(f"{engine}->{chosen} status {st} z={z!r} "
+                         f"{nit} pivots {secs!r} s")
+        log(f"[mps] adversarial {seed} ({lp.n_cons}x{lp.n_vars}, "
+            f"{int(np.sum(np.isfinite(lp.ub)))} finite ub, "
+            f"{int(np.sum(lp.free))} free) on {gpu}: HiGHS status {st_ref} "
+            f"z={z_ref!r}; " + "; ".join(parts))
+    check(pivot_kernel.LAUNCHES >= 1,
+          "the MPS branch's dense engine launched K1 no time")
+    log(f"[mps] K1 launches over the four --engine dense runs: "
+        f"{pivot_kernel.LAUNCHES}")
+
+
+# Phase 14 (b): the revised engine's LP, at the 1:3 shape of
+# tests/test_engines.py::test_revised_large_netlib_shape.  Netlib's
+# large-instance scale, 2000 x 6000, was halved twice: there, and at
+# 1000 x 3000, the float32 device loop stops without a certified optimum
+# and the solve escalates to the host's float64 engine (on an NVIDIA H100
+# 80GB HBM3, 700.00 W: 2000 x 6000 after about 3,600 iterations, 1000 x 3000
+# after about 13,700); at 500 x 1500 it reaches the optimum on the card.
+REVISED_M, REVISED_N = 500, 1500
+
+
+def _profile_revised(torch, solve, chunks=6):
+    """One more ``solve()``, its first ``chunks`` chunks under
+    ``torch.profiler`` (the whole solve's ~700k ops would take the profiler
+    many minutes to process; a chunk repeats one refactor and 64 steps).
+    Returns the window's wall seconds, its pivots (one a step, an upper
+    bound), the device time of every kernel and copy, and the device time
+    launched under ``aten::linalg_solve_ex`` (the refactors), in us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch.models import revised
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    refactor, calls, window = revised._refactor, [0], {}
+
+    def stop():
+        if "wall" not in window:
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            prof.stop()
+
+    def counted(*args, **kw):
+        # solve() refactors once, then once a chunk: stop before the
+        # (chunks + 1)-th, so the window holds `chunks` of each.
+        calls[0] += 1
+        if calls[0] == chunks + 1:
+            stop()
+        return refactor(*args, **kw)
+
+    revised._refactor = counted
+    try:
+        prof.start()
+        window["t0"] = time.perf_counter()
+        solve()
+        stop()
+    finally:
+        revised._refactor = refactor
+    dev_us, solve_us, top = 0.0, 0.0, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA \
+                and not ev.key.startswith("aten::"):
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            dev_us += us
+            top.append((us, ev.count, ev.key))
+        elif ev.key == "aten::linalg_solve_ex":
+            solve_us += getattr(ev, "device_time_total",
+                                getattr(ev, "cuda_time_total", 0.0))
+    top.sort(reverse=True)
+    return window["wall"], 64 * chunks - 1, dev_us, solve_us, top
+
+
+def phase_revised(torch, pt, gpu, m=REVISED_M, n=REVISED_N):
+    """Phase 14 (b): the revised engine on the full-width netlib-style LP
+    on the card, against HiGHS, with its rate, its host reads and where
+    its device time goes."""
+    from simplex_tpu_torch.models import revised
+    from simplex_tpu_torch.utils import mps
+
+    lp = mps.generate_netlib_style(1, m=m, n=n, density=0.03)
+    t0 = time.perf_counter()
+    st_ref, z_ref = _highs_bounded(lp.c, lp.A, lp.b, lp.ops, lp.maximize,
+                                   lp.lb, lp.ub)
+    highs_s = time.perf_counter() - t0
+    check(st_ref == 0, f"HiGHS status {st_ref} on the {m}x{n} LP")
+    solver = pt.RevisedSimplexSolver(pt.SolverConfig(device="cuda"))
+    # cuBLAS and cuSOLVER start up on a small LP of the same generator.
+    solver.solve(mps.generate_netlib_style(1, m=m // 10, n=n // 10,
+                                           density=0.03))
+
+    revised.STATE_READS = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve(lp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = revised.STATE_READS
+    peak = torch.cuda.max_memory_allocated()
+    check(res.status == 0, f"{m}x{n} revised status {res.status} "
+          f"({res.message}, {res.nit} pivots)")
+    check(not res.escalated, f"{m}x{n} revised solve escalated")
+    check(res.x is not None and res.x.shape == (n,)
+          and bool(np.all(np.isfinite(res.x))), "revised x not finite")
+    check(_gate(z_ref, res.z), f"{m}x{n} revised z={res.z!r} vs HiGHS "
+          f"{z_ref!r}")
+    # One read a chunk of 64 iterations; each of the two phases adds at
+    # most two partial chunks.
+    check(reads <= res.nit / 64 + 4,
+          f"{reads} host reads of the loop state for {res.nit} pivots")
+    log(f"[revised] {m}x{n} netlib-style (density 0.03) on {gpu}: status 0, "
+        f"z={res.z!r} (HiGHS {z_ref!r}, {highs_s!r} s on the host), "
+        f"pivots={res.nit}, wall={wall!r} s, {res.nit / wall!r} pivots/s, "
+        f"host reads of the loop state {reads} = {reads / res.nit!r} a "
+        f"pivot, escalated={res.escalated}, peak device memory "
+        f"{peak / 2**20!r} MiB")
+
+    wall_p, steps, dev_us, solve_us, top = _profile_revised(
+        torch, lambda: solver.solve(lp))
+    if dev_us == 0:
+        log("[revised-profile] the profiler saw no device time")
+        return
+    per_step = (dev_us - solve_us) / 1e3 / steps
+    log(f"[revised-profile] on {gpu}: the first {steps} steps and their "
+        f"refactors, wall {wall_p!r} s under the profiler; device time "
+        f"{dev_us / 1e3!r} ms = {dev_us / 1e6 / wall_p!r} of that wall; "
+        f"linalg.solve_ex (the refactors) {solve_us / 1e3!r} ms = "
+        f"{solve_us / dev_us!r} of the device time, the per-step ops the "
+        f"rest ({per_step!r} ms a step); at that rate the {res.nit} pivots' "
+        f"device time is {(dev_us / steps) * res.nit / 1e6!r} s = "
+        f"{(dev_us / steps) * res.nit / 1e6 / wall!r} of the unprofiled "
+        f"wall")
+    for us, cnt, key in top[:8]:
+        log(f"[revised-profile]   {us / 1e3!r} ms, {cnt} calls: {key[:90]}")
+
+
+# The max anchor as the web form of /new.
+ANCHOR_FORM = {
+    "problem_type": "maximize",
+    "objective[]": ["15", "18"],
+    "constraint_1[]": ["4", "2", "20"],
+    "constraint_2[]": ["2", "6", "28"],
+    "constraint_sign[]": ["<=", "<=", "<="],
+    "constraint_rhs[]": ["2000", "2400", "14000"],
+}
+
+
+def phase_web(torch, cli, pivot_kernel, profiling, gpu):
+    """Phase 15: the web app on the card through its in-process client,
+    then the CLI's export-pdf."""
+    import contextlib
+    import io
+
+    from simplex_tpu_torch.config import SolverConfig
+    from simplex_tpu_torch.utils import mps
+    from simplex_tpu_torch.web.app import init_app
+    from simplex_tpu_torch.web.microweb import TestClient
+
+    check(SolverConfig.from_env().device == "cuda",
+          "the web app's config does not default to the card")
+    client = TestClient(init_app())
+    r = client.get("/")
+    check(r.status_code == 200, f"GET / {r.status_code}")
+    before = json.loads(client.get("/metrics").text)["solves"]
+    n_rec = len(profiling.DEFAULT_METRICS.records)
+
+    pivot_kernel.LAUNCHES = 0
+    r = client.post("/new", data=ANCHOR_FORM)
+    check(r.status_code == 200 and "Vista previa" in r.text,
+          "POST /new gave no preview")
+    r = client.post("/solve")
+    launches = pivot_kernel.LAUNCHES
+    check(r.status_code == 200 and "Solucion Factible" in r.text
+          and "9833.3333" in r.text, "POST /solve: no Z = 9833.3333")
+    check(launches >= 1, "the web /solve launched K1 no time")
+
+    after = json.loads(client.get("/metrics").text)["solves"]
+    recs = profiling.DEFAULT_METRICS.records
+    check(after.get("solves", 0) == before.get("solves", 0) + 1
+          and len(recs) == n_rec + 1, f"/metrics: {before} -> {after}")
+    rec = recs[-1]
+    check((rec.engine, rec.status, rec.n_vars, rec.n_cons)
+          == ("dense", 0, 2, 3), f"/metrics record {rec.to_json()}")
+
+    r = client.get("/exportar-pdf")
+    check(r.status_code == 200 and r.data.startswith(b"%PDF")
+          and b"9833.3333" in r.data, "GET /exportar-pdf gave no PDF")
+    pdf_bytes = len(r.data)
+
+    r = client.post("/load", files={"problem_file": (
+        "adversarial0.mps", mps.generate_netlib_adversarial(0))},
+        follow_redirects=True)
+    free = "variables libres" in r.text
+    check(r.status_code == 200 and ("Vista previa" in r.text or free),
+          "POST /load of the MPS file gave neither preview nor message")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export-pdf"])
+    out = buf.getvalue().strip()
+    path = out.rsplit(" ", 1)[-1]
+    check(rc == 0 and os.path.exists(path), f"export-pdf: {out!r}")
+    with open(path, "rb") as f:
+        check(f.read(5) == b"%PDF-", f"{path} is not a PDF")
+    log(f"[web] on {gpu}: GET / 200; /new + /solve Z=9833.3333 with "
+        f"{launches} K1 launches; /metrics {after} with the record "
+        f"{rec.to_json()}; /exportar-pdf {pdf_bytes} bytes; "
+        f"/load of adversarial 0 (MPS): "
+        f"{'free-variable message' if free else 'preview'}; CLI "
+        f"export-pdf wrote {os.path.basename(path)}")
+
+
 def main():
     import torch
 
@@ -1545,7 +1819,6 @@ def main():
 
     # 5. the main path at full size
     launches = phase_solve(torch, pt, pivot_kernel, gpu)
-    tmp.cleanup()
 
     # 6. K2 against its twin, 7. timed
     k2_err = phase_k2(torch, bk, compile_batch_uniform)
@@ -1604,9 +1877,19 @@ def main():
             f"({b_by}) = {b_ms / ms!r} of it at 3.35 TB/s; at K4's "
             f"measured ceiling the same bytes take {at_ceiling!r} ms = "
             f"{at_ceiling / ms!r} of it")
+
+    # 14. MPS files through every engine, and the revised engine at full
+    # width; 15. the web app and the remaining commands
+    t_mps = time.perf_counter()
+    phase_mps(torch, cli, pivot_kernel, tmp.name, gpu)
+    phase_revised(torch, pt, gpu)
+    t_web = time.perf_counter()
+    phase_web(torch, cli, pivot_kernel, profiling, gpu)
+    tmp.cleanup()
     t_end = time.perf_counter()
-    log(f"[done] phases 1-13 in {t_end - t_start!r} s, of which phases "
-        f"9-11 {t_k4 - t_k3!r} s and 12-13 {t_end - t_k4!r} s")
+    log(f"[done] phases 1-15 in {t_end - t_start!r} s, of which phases "
+        f"9-11 {t_k4 - t_k3!r} s, 12-13 {t_mps - t_k4!r} s, 14 "
+        f"{t_web - t_mps!r} s and 15 {t_end - t_web!r} s")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",

@@ -12,6 +12,10 @@ through the bounded kernel K3, ``csrc/fused_pivot_step_bounded.cu``.  The
 pivot-rate measurement (``utils/pivot_bench.py``) holds K1 against the
 card's streaming ceiling, measured by the copy kernel K4,
 ``csrc/stream_copy.cu``; ``utils/profiling.py`` keeps the solve records.
+Off the tableau path: netlib-style LPs from MPS files (``load_mps``,
+``parse_mps``) through the revised engine (``RevisedSimplexSolver``, basis
+inverse on the card) or the native C++ host engine, and every entry point
+of the JAX package's CLI and web app (``cli.py``, ``web/app.py``).
 The package imports torch, numpy and scipy and never JAX, so it runs on a
 machine without JAX.
 """
@@ -26,14 +30,19 @@ from .models.batched import (
     solve_lp_sweep,
 )
 from .models.dense import SimplexResult, solve_lp
+from .models.revised import RevisedSimplexSolver
+from .utils.mps import load_mps, parse_mps
 
 __all__ = [
     "BatchResult",
     "BatchedSimplexSolver",
     "LinearProgram",
+    "RevisedSimplexSolver",
     "SimplexResult",
     "SolverConfig",
     "compile_standard_form",
+    "load_mps",
+    "parse_mps",
     "solve_lp",
     "solve_lp_batch",
     "solve_lp_sweep",

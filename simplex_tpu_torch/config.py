@@ -31,6 +31,10 @@ PREFIX_SOLUCION = "solucion_"
 PREFIX_PROBLEMA = "problema_"
 PREFIX_PDF = "reporte_solucion_"
 
+# Web secret key: overridable, unlike the reference's hardcoded one
+# (``routers.py:23``).
+SECRET_KEY = os.environ.get("SIMPLEX_TPU_SECRET_KEY", "simplex_tpu_dev_key")
+
 
 def _env_float(name: str, default: float) -> float:
     v = os.environ.get(name)
@@ -113,3 +117,17 @@ def resolve_dtype(dtype_str: str):
     if torch_dt is None:
         raise ValueError(f"unsupported solver dtype {dtype_str!r}")
     return dt, torch_dt
+
+
+def torch_device(name: str):
+    """``torch.device(name)``, raising where ``name`` is a CUDA device and
+    no GPU is present: the entry points fail there instead of carrying on
+    on the CPU.  CPU runs ask for ``"cpu"``."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but no CUDA device is available "
+            "(pass device='cpu', or --device cpu, to run on the CPU)")
+    return dev

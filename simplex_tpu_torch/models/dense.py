@@ -8,7 +8,8 @@ or non-optimal verdict is re-solved exactly by the host f64 engine, as in
 the JAX package.
 
 The host-side numpy helpers (padding plan, result type, f64 finalization,
-the host f64 simplex, warm start, equilibration gate) are copied from
+the bounded f64 finalization of the revised engine, the host f64
+simplex, warm start, equilibration gate) are copied from
 ``simplex_tpu/models/dense.py`` as they are; only :func:`solve_lp`'s device
 calls change.  ``SimplexResult`` gains one field, ``escalated``.
 """
@@ -157,6 +158,75 @@ def _finalize_on_host(sf: StandardForm, lp: LinearProgram,
         not np.any(x_B < -tol * scale)
         and not np.any(art[basis] & (np.abs(x_B) > tol * scale))
         and bool(np.all(rc_min[valid] >= -tol * c_scale))
+    )
+    return certified, x_full, duals, reduced
+
+
+def _finalize_on_host_bounded(sf: StandardForm, lp: LinearProgram,
+                              basis: np.ndarray, at_upper: np.ndarray,
+                              sf64: Optional[StandardForm] = None,
+                              tol: float = 1e-7):
+    """Bounded-variable counterpart of :func:`_finalize_on_host`.
+
+    The vertex is defined by (basis, at_upper): nonbasic columns sit at 0
+    or at their upper bound u_j, so ``B x_B = b - A_U u_U``.  f64 KKT
+    certification adds the bound-side conditions: ``0-tol <= x_B <=
+    u_B+tol``; at-LOWER nonbasics need rc >= -tol, at-UPPER nonbasics
+    rc <= +tol (their reduced cost pushes INTO the bound).  This is the
+    per-solve safety net that makes the f32 bounded ratio test
+    (models/revised.py) trustworthy.
+    """
+    from scipy.linalg import lu_factor, lu_solve
+
+    m = sf.n_rows
+    basis = np.asarray(basis[:m], dtype=np.int64)
+    if np.any(basis >= sf.n_cols):
+        return False, None, None, None
+    if sf64 is None:
+        sf64 = compile_standard_form(lp, dtype=np.float64, bounded=True)
+    A_full = sf64.tableau[:m, : sf.n_cols]
+    b = sf64.tableau[:m, sf64.n_pad]
+    c_full = sf64.obj_row_p2[: sf.n_cols]
+    ub = (sf64.ub_ext[: sf.n_cols] if sf64.ub_ext is not None
+          else np.full((sf.n_cols,), np.inf))
+    at_up = np.asarray(at_upper[: sf.n_cols], bool) & np.isfinite(ub)
+    at_up[basis] = False
+    u_vec = np.where(at_up, ub, 0.0)
+
+    B = A_full[:, basis]
+    try:
+        lu = lu_factor(B)
+        x_B = lu_solve(lu, b - A_full @ u_vec)
+        y = lu_solve(lu, c_full[basis], trans=1)
+    except (np.linalg.LinAlgError, ValueError):
+        return False, None, None, None
+    if not (np.all(np.isfinite(x_B)) and np.all(np.isfinite(y))):
+        return False, None, None, None
+
+    x_full = u_vec.copy()
+    x_full[basis] = x_B
+
+    rc_min = c_full - y @ A_full
+    user_sign = -1.0 if lp.maximize else 1.0
+    row_sign = np.where(lp.b < 0, -1.0, 1.0)
+    duals = user_sign * row_sign * y
+    reduced = user_sign * rc_min[: lp.n_vars]
+
+    scale = 1.0 + float(np.max(np.abs(b))) if b.size else 1.0
+    c_scale = 1.0 + float(np.max(np.abs(c_full)))
+    art = (sf.col_mask_p1 & ~sf.col_mask_p2)[: sf.n_cols]
+    valid = sf.col_mask_p2[: sf.n_cols]
+    ub_B = ub[basis]
+    nonbasic = valid.copy()
+    nonbasic[basis] = False
+    lo_side = nonbasic & ~at_up
+    up_side = nonbasic & at_up
+    certified = (
+        not np.any(x_B < -tol * scale)
+        and not np.any(np.isfinite(ub_B) & (x_B > ub_B + tol * scale))
+        and not np.any(art[basis] & (np.abs(x_B) > tol * scale))
+        and bool(np.all(rc_min[lo_side] >= -tol * c_scale))
+        and bool(np.all(rc_min[up_side] <= tol * c_scale))
     )
     return certified, x_full, duals, reduced
 

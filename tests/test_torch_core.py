@@ -2,8 +2,10 @@
 
 ``simplex_tpu_torch`` cannot import ``simplex_tpu`` (its ``__init__`` pulls
 in JAX), so it carries copies of ``core/``, ``models/certify.py``, the
-storage and visualization services, and the numpy helpers of
-``models/batched.py``.  These tests hold each copy to its source: the text
+storage, visualization and PDF services, the MPS reader, the CLI prompts,
+the web framework with its templates, the native host engine with its C++
+source, and the numpy helpers of ``models/batched.py`` and
+``models/dense.py``.  These tests hold each copy to its source: the text
 (apart from a module's one header line and the reference-project path
 prefix in docstrings) and the results on the same inputs.
 """
@@ -14,13 +16,15 @@ import re
 import numpy as np
 import pytest
 
-from _torch_parity import ANCHORS, anchor_wrapper, seeded_lp
+from _torch_parity import ANCHORS, anchor_wrapper, bounded_lp, seeded_lp
 
 from simplex_tpu.config import SolverConfig as j_cfg
 from simplex_tpu_torch.config import SolverConfig as t_cfg
 
 import simplex_tpu.core.parsing as j_parsing
 import simplex_tpu.models.batched as j_batched
+import simplex_tpu.models.dense as j_dense
+import simplex_tpu.utils.mps as j_mps
 import simplex_tpu.core.presolve as j_presolve
 import simplex_tpu.core.problem as j_problem
 import simplex_tpu.services.history as j_history
@@ -28,6 +32,8 @@ import simplex_tpu.services.storage as j_storage
 import simplex_tpu.services.viz as j_viz
 import simplex_tpu_torch.core.parsing as t_parsing
 import simplex_tpu_torch.models.batched as t_batched
+import simplex_tpu_torch.models.dense as t_dense
+import simplex_tpu_torch.utils.mps as t_mps
 import simplex_tpu_torch.core.presolve as t_presolve
 import simplex_tpu_torch.core.problem as t_problem
 import simplex_tpu_torch.services.history as t_history
@@ -36,7 +42,15 @@ import simplex_tpu_torch.services.viz as t_viz
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 COPIES = ["core/parsing.py", "core/problem.py", "core/presolve.py",
-          "services/storage.py", "services/viz.py", "models/certify.py"]
+          "services/storage.py", "services/viz.py", "models/certify.py",
+          "utils/mps.py", "controllers/cli_io.py", "services/pdf.py",
+          "web/microweb.py", "models/host.py", "runtime/native/__init__.py",
+          "runtime/native/simplex_host.cpp"]
+# Files the web app reads, copied byte for byte (no header line).
+WEB_FILES = ["web/templates/base.html", "web/templates/index.html",
+             "web/templates/load_problem.html",
+             "web/templates/new_problem.html", "web/templates/preview.html",
+             "web/templates/solution.html", "web/static/style.css"]
 # The numpy helpers that the port's models/batched.py copies as they are.
 BATCHED_HELPERS = ["_round_up", "BatchResult", "CompiledBatch",
                    "_build_ub_ext", "compile_batch_uniform", "_batch_tol",
@@ -50,9 +64,102 @@ def test_copy_is_verbatim(rel):
     with open(os.path.join(REPO, "simplex_tpu_torch", rel),
               encoding="utf-8") as f:
         header, copy = f.read().split("\n", 1)
-    assert header == (f"# Copied from simplex_tpu/{rel}; keep in step "
-                      "(tests/test_torch_core.py).")
+    comment = "//" if rel.endswith(".cpp") else "#"
+    assert header == (f"{comment} Copied from simplex_tpu/{rel}; keep in "
+                      "step (tests/test_torch_core.py).")
     assert copy == re.sub(r"/\w+/reference/", "", src)
+
+
+@pytest.mark.parametrize("rel", WEB_FILES)
+def test_web_file_is_identical(rel):
+    with open(os.path.join(REPO, "simplex_tpu", rel), "rb") as f:
+        src = f.read()
+    with open(os.path.join(REPO, "simplex_tpu_torch", rel), "rb") as f:
+        assert f.read() == src
+
+
+def test_web_files_are_all_copied():
+    """No template or stylesheet of the JAX app is missing from the
+    port's."""
+    found = []
+    for sub in ("templates", "static"):
+        for name in os.listdir(os.path.join(REPO, "simplex_tpu", "web",
+                                            sub)):
+            found.append(f"web/{sub}/{name}")
+    assert sorted(found) == sorted(WEB_FILES)
+
+
+def test_finalize_on_host_bounded_is_verbatim():
+    assert inspect.getsource(t_dense._finalize_on_host_bounded) == \
+        inspect.getsource(j_dense._finalize_on_host_bounded)
+
+
+@pytest.mark.parametrize("seed", [2, 7, 9])
+def test_finalize_on_host_bounded_gives_the_same_certificate(seed):
+    """One JAX revised solve of a bounded LP (a seed whose normalized LP
+    has no free column), finalized by both copies."""
+    from simplex_tpu.models.revised import RevisedSimplexSolver
+
+    kw = bounded_lp(seed)
+    lp_j, _ = j_problem.normalize_bounds(j_problem.LinearProgram(**kw))
+    lp_t, _ = t_problem.normalize_bounds(t_problem.LinearProgram(**kw))
+    res = RevisedSimplexSolver(j_cfg(presolve=False)).solve(lp_j)
+    assert not lp_j.has_free and res.at_upper is not None
+    sf_j = j_problem.compile_standard_form(lp_j, dtype=np.float64,
+                                           bounded=True)
+    sf_t = t_problem.compile_standard_form(lp_t, dtype=np.float64,
+                                           bounded=True)
+    a = j_dense._finalize_on_host_bounded(sf_j, lp_j, res.basis,
+                                          res.at_upper, sf64=sf_j)
+    b = t_dense._finalize_on_host_bounded(sf_t, lp_t, res.basis,
+                                          res.at_upper, sf64=sf_t)
+    assert a[0] == b[0] and a[0]
+    for x, y in zip(a[1:], b[1:]):
+        np.testing.assert_array_equal(x, y)
+
+
+MPS_CASES = ["testprob", "nlfree1", "adversarial", "netlib_style"]
+
+
+def _mps_text(kind):
+    from test_mps import NLFREE1, TESTPROB
+
+    if kind == "testprob":
+        return TESTPROB
+    if kind == "nlfree1":
+        return NLFREE1
+    if kind == "adversarial":
+        return t_mps.generate_netlib_adversarial(2)
+    return None
+
+
+@pytest.mark.parametrize("kind", MPS_CASES)
+def test_mps_reader_gives_the_same_lp(kind):
+    text = _mps_text(kind)
+    if text is None:
+        a = j_mps.generate_netlib_style(7, m=12, n=30, n_free=3)
+        b = t_mps.generate_netlib_style(7, m=12, n=30, n_free=3)
+    else:
+        assert j_mps.generate_netlib_adversarial(2) == \
+            t_mps.generate_netlib_adversarial(2)
+        a, b = j_mps.parse_mps(text), t_mps.parse_mps(text)
+    for f in ("c", "A", "b", "ops", "lb", "ub", "free"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    assert (a.maximize, a.variables) == (b.maximize, b.variables)
+
+
+def test_pdf_service_writes_the_same_bytes(tmp_path):
+    from simplex_tpu.controllers.orchestrator import solve_problem_dict
+    from simplex_tpu.services.pdf import PdfReportService as JPdf
+    from simplex_tpu_torch.services.pdf import PdfReportService as TPdf
+
+    report = solve_problem_dict(anchor_wrapper(ANCHORS[0]), save=False)
+    JPdf(report, str(tmp_path / "a.pdf")).generate()
+    TPdf(report, str(tmp_path / "b.pdf")).generate()
+    assert (tmp_path / "a.pdf").read_bytes() == \
+        (tmp_path / "b.pdf").read_bytes()
+
 
 
 @pytest.mark.parametrize("name", BATCHED_HELPERS)

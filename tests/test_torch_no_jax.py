@@ -26,6 +26,12 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.ops.stream_kernel\n"
             "import simplex_tpu_torch.utils.profiling\n"
             "import simplex_tpu_torch.utils.pivot_bench\n"
+            "import simplex_tpu_torch.models.revised\n"
+            "import simplex_tpu_torch.models.host\n"
+            "import simplex_tpu_torch.utils.mps\n"
+            "import simplex_tpu_torch.web.app\n"
+            "import simplex_tpu_torch.services.pdf\n"
+            "import simplex_tpu_torch.controllers.cli_io\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'simplex_tpu' or m.startswith('simplex_tpu.')]\n"
@@ -66,5 +72,12 @@ def test_stream_variants_tool_imports_no_jax():
 def test_batched_variants_tool_imports_no_jax():
     """The K2/K3 design comparison runs on the GPU machine too."""
     path = os.path.join(REPO, "tools", "batched_variants.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def test_revised_sizes_tool_imports_no_jax():
+    """The revised engine's size probe runs on the GPU machine too."""
+    path = os.path.join(REPO, "tools", "revised_sizes.py")
     with open(path, encoding="utf-8") as f:
         assert not _FORBIDDEN.search(f.read())
