@@ -89,7 +89,42 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     the card: ``GET /``, the max anchor through ``/new`` and ``/solve``
     (Z = 9833.3333, K1 launched), ``/metrics`` with that solve's record,
     ``/exportar-pdf``, an MPS upload to ``/load``, then the CLI's
-    ``export-pdf``.
+    ``export-pdf``;
+16. the dual reoptimizer (``reoptimize``, every pivot through K1): (a)
+    phase 5's LP with ``b`` shrunk by U(0.01, 0.05) (seed 16) from phase
+    5's basis, in float64 (in float32 the dual loop diverges on this LP, in
+    the JAX package too), against HiGHS, ``solve_tableau_dual`` run once
+    and no cold ``solve_lp``, its pivots against a cold solve, its K1
+    launches and host reads, and its wall split into the host f64 refactor
+    before the loop, the device loop and the f64 certificate after it; (b)
+    the bounded dual loop at 384 x 256 (``tests/test_bounds.py:316``'s
+    generator, 60 % of the variables bounded) from a revised parent's
+    ``(basis, at_upper)``, after an RHS shrink and an RHS increase, against
+    HiGHS, no cold fallback;
+17. PDHG at ``bench.py::bench_pdhg``'s cell: ``_pdhg_solve`` on staged
+    65536 x (20x30) f32 inputs, 10,000 iterations at most, tol 1e-4: the
+    median of 3 device solves on CUDA events as LPs/s, the iterations, the
+    converged share, the host reads (at most iterations/40 + 2); 256
+    sampled instances against HiGHS (2e-3, ``tests/test_engines.py:169``)
+    and their residuals recomputed in f64; ``torch.profiler`` over the
+    first 401 iterations (device busy share, the matvecs' share); then
+    ``PdhgSolver.solve_arrays(ub=)`` on 4096 bounded instances, 512
+    sampled against HiGHS;
+18. the PDHG stream (``models/pdhg.solve_arrays_stream``) with
+    ``crossover="unconverged"`` on 2 chunks of 250,000 x (20x30), half of
+    ``bench_stream``'s 1M cell at its full chunk width: every instance
+    converged or recovered (the batched recovery launches K2), recovered
+    vertices against HiGHS, the wall against the device solve re-timed on
+    a staged chunk; then ``crossover="all"`` on 32 instances (one
+    ``reoptimize`` an instance, K1);
+19. the batched stream (``models/batched.solve_arrays_stream``) on 4
+    chunks of 65536 x (30x50) (``bench_stream_exact``'s chunk, seeds
+    300+k), certified: chunk 0 equal to ``solve_arrays`` bit for bit, the
+    certificate of chunk k overlapping the solve of chunk k+1 on the host
+    clock, and, under ``torch.profiler`` over two chunks, an upload on the
+    side stream overlapping a K2 launch; then a mixed stream of 4 x 16384
+    (phase 8's and phase 11's batches in turns), each equal to
+    ``solve_arrays``, K2 and K3 both launched.
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
@@ -446,7 +481,7 @@ def phase_solve(torch, pt, pivot_kernel, gpu, size=2048):
         f"(HiGHS {z_ref!r}, {highs_s!r} s on the host), pivots={res.nit}, "
         f"wall={wall!r} s, {res.nit / wall!r} pivots/s, "
         f"escalated={res.escalated}, K1 launches={launches}")
-    return launches
+    return launches, res.basis
 
 
 MIXED_OPS = np.array([-1, -1, -1, -1, 1, 1, 0, 0, -1])
@@ -1763,6 +1798,527 @@ def phase_web(torch, cli, pivot_kernel, profiling, gpu):
         f"export-pdf wrote {os.path.basename(path)}")
 
 
+class _Timed:
+    """Replaces ``module.name`` while in use by a wrapper that records each
+    call's (start, end) on the host clock, with a device sync at both ends
+    when ``torch`` is given (never from a worker thread), and restores it
+    on exit."""
+
+    def __init__(self, module, name, torch=None):
+        self.module, self.name, self.torch = module, name, torch
+        self.calls = []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            if self.torch is not None:
+                self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if self.torch is not None:
+                    self.torch.cuda.synchronize()
+                self.calls.append((t0, time.perf_counter()))
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def seconds(self):
+        return sum(t1 - t0 for t0, t1 in self.calls)
+
+
+def phase_reoptimize(torch, pt, pivot_kernel, gpu, basis, size=2048):
+    """Phase 16 (a): the dual reoptimizer on phase 5's LP after an RHS
+    shrink, from phase 5's basis."""
+    from scipy.optimize import linprog
+
+    from simplex_tpu_torch.models import dense
+    from simplex_tpu_torch.ops import tableau
+
+    c, A, b = dense_lp(size)
+    b2 = b * (1.0 - np.random.default_rng(16).uniform(0.01, 0.05, size))
+    lp2 = pt.LinearProgram(c=c, A=A, b=b2, ops=np.full(size, -1),
+                           maximize=True)
+    # Float64: in float32 the dual loop loses dual feasibility on this LP
+    # and runs to its cap, in the JAX package too (ROADMAP.md, Queue 3).
+    cfg = pt.SolverConfig(device="cuda", dtype="float64")
+    pivot_kernel.LAUNCHES = 0
+    tableau.STATE_READS = 0
+    with _Timed(tableau, "solve_tableau_dual", torch) as loop, \
+            _Timed(dense, "solve_lp") as cold:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pt.reoptimize(lp2, basis, cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    launches, reads = pivot_kernel.LAUNCHES, tableau.STATE_READS
+    check(len(loop.calls) == 1 and not cold.calls,
+          f"solve_tableau_dual ran {len(loop.calls)} times, the cold "
+          f"solve_lp {len(cold.calls)}")
+    check(res.status == 0, f"reoptimize status {res.status}")
+    check(launches >= res.nit and launches >= 1,
+          f"K1 launches {launches} < dual pivots {res.nit}")
+    t4 = time.perf_counter()
+    ref = linprog(-c, A_ub=A, b_ub=b2, method="highs")
+    highs_s = time.perf_counter() - t4
+    check(ref.status == 0 and _gate(-ref.fun, res.z),
+          f"reoptimize z={res.z!r} vs HiGHS {-ref.fun!r}")
+    t5 = time.perf_counter()
+    cold_res = pt.solve_lp(lp2, cfg)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t5
+    check(cold_res.status == 0 and _gate(-ref.fun, cold_res.z),
+          "the cold solve of the shrunk LP")
+    (t1, t2), = loop.calls
+    log(f"[reoptimize] {size}x{size} dense LP, b shrunk by U(0.01, 0.05) "
+        f"(seed 16), float64, from phase 5's basis on {gpu}: status 0, "
+        f"z={res.z!r} "
+        f"(HiGHS {-ref.fun!r}, {highs_s!r} s on the host), {res.nit} dual "
+        f"pivots against {cold_res.nit} for a cold float64 solve_lp "
+        f"({cold_s!r} s); wall {t3 - t0!r} s = before the loop (standard "
+        f"form, the host f64 refactor and the dual-feasibility gate, the "
+        f"upload) {t1 - t0!r} s + the device loop {t2 - t1!r} s + after "
+        f"it (f64 certificate, refinement, sensitivity) {t3 - t2!r} s; K1 "
+        f"launches {launches}, host reads {reads}; solve_tableau_dual ran "
+        f"once, the cold solve_lp not at all")
+    return launches
+
+
+def bounded_reopt_lp(seed, m=384, n=256):
+    """``tests/test_bounds.py:316``'s generator (A from U(0.1, 1), 60 % of
+    the variables bounded) at (m, n), with its RHS shrunk by U(0.01, 0.05)
+    and raised by U(0.05, 0.25) (the pattern of :355)."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(0.1, 1.0, size=(m, n))
+    x0 = rng.uniform(0.2, 1.5, size=n)
+    b = A @ x0 + rng.uniform(0.05, 0.4, size=m)
+    c = rng.uniform(0.1, 1.0, size=n)
+    ub = np.where(rng.random(n) < 0.6, x0 * rng.uniform(0.7, 1.6, n),
+                  np.inf)
+    shrink = b * (1.0 - rng.uniform(0.01, 0.05, size=m))
+    grow = b * (1.0 + rng.uniform(0.05, 0.25, size=m))
+    return c, A, b, ub, shrink, grow
+
+
+def phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu, m=384, n=256):
+    """Phase 16 (b): the bounded dual loop from a revised parent's
+    ``(basis, at_upper)``, after an RHS shrink and an RHS increase."""
+    from simplex_tpu_torch.models import dense
+    from simplex_tpu_torch.ops import tableau
+
+    cfg = pt.SolverConfig(device="cuda")
+    c, A, b, ub, shrink, grow = bounded_reopt_lp(16, m, n)
+    kw = dict(c=c, A=A, ops=np.full(m, -1), maximize=True, ub=ub)
+    solver = pt.RevisedSimplexSolver(cfg)
+    parent = solver.solve(pt.LinearProgram(b=b, **kw))
+    check(parent.status == 0 and parent.at_upper is not None,
+          f"revised parent status {parent.status}")
+    total = 0
+    for name, b2 in (("shrink", shrink), ("increase", grow)):
+        lp2 = pt.LinearProgram(b=b2, **kw)
+        pivot_kernel.LAUNCHES = 0
+        with _Timed(tableau, "solve_tableau_dual_bounded", torch) as loop, \
+                _Timed(dense, "solve_lp") as cold:
+            t0 = time.perf_counter()
+            res = pt.reoptimize(lp2, parent.basis, cfg,
+                                at_upper=parent.at_upper)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = pivot_kernel.LAUNCHES
+        total += launches
+        check(len(loop.calls) == 1 and not cold.calls,
+              f"bounded {name}: the dual loop ran {len(loop.calls)} times, "
+              f"the cold fallback {len(cold.calls)}")
+        check(res.status == 0 and res.at_upper is not None,
+              f"bounded {name}: status {res.status}")
+        st, z_ref = _highs_bounded(c, A, b2, np.full(m, -1), True,
+                                   np.zeros(n), ub)
+        check(st == 0 and _gate(z_ref, res.z),
+              f"bounded {name}: z={res.z!r} vs HiGHS {z_ref!r}")
+        cold_res = solver.solve(lp2)
+        check(cold_res.status == 0 and _gate(z_ref, cold_res.z),
+              f"bounded {name}: the cold revised solve")
+        log(f"[reoptimize-bounded] {m}x{n}, 60 % of the variables bounded, "
+            f"RHS {name} from the revised parent's basis and at_upper on "
+            f"{gpu}: status 0, z={res.z!r} (HiGHS {z_ref!r}), {res.nit} "
+            f"dual pivots against {cold_res.nit} for a cold revised solve "
+            f"(parent: {parent.nit}), {int(res.at_upper.sum())} columns at "
+            f"upper, wall {wall!r} s, the loop {loop.seconds()!r} s, K1 "
+            f"launches {launches}; no cold fallback")
+    return total
+
+
+def pdhg_cell(B, m=20, n=30):
+    """The batch of ``bench.py::bench_pdhg`` (same generator and seed), in
+    min form: ``c`` negated."""
+    rng = np.random.default_rng(0)
+    A = rng.uniform(0.05, 1.0, size=(B, m, n)).astype(np.float32)
+    b = rng.uniform(1.0, 5.0, size=(B, m)).astype(np.float32)
+    c = -rng.uniform(0.1, 1.0, size=(B, n)).astype(np.float32)
+    return A, b, c
+
+
+def _pdhg_gate(z_ref, z):
+    """``tests/test_engines.py:169``'s gate: within 2e-3 relative."""
+    return abs(z - z_ref) <= 2e-3 * abs(z_ref) + 1e-12
+
+
+def _profile_ops(torch, fn, op):
+    """``fn()`` under ``torch.profiler``: its wall seconds, the device time
+    of every kernel and copy (us) and the device time launched under the
+    aten op ``op`` (us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = op_us = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA \
+                and not ev.key.startswith("aten::"):
+            dev_us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+        elif ev.key == op:
+            op_us += getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+    return wall, dev_us, op_us
+
+
+def phase_pdhg(torch, pt, gpu, B=65536, m=20, n=30, tol=1e-4,
+               max_iters=10000):
+    """Phase 17: ``_pdhg_solve`` at ``bench.py::bench_pdhg``'s cell on
+    staged inputs, against HiGHS on a sample; then bounded PDHG."""
+    from scipy.optimize import linprog
+
+    from simplex_tpu_torch.models import pdhg
+
+    A, b, c = pdhg_cell(B, m, n)
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(a, device=dev) for a in (A, b, c)] + [
+        torch.zeros((B, m), dtype=torch.bool, device=dev)]
+    pdhg._pdhg_solve(*args, max_iters=81, tol=tol)         # warm-up
+    times = []
+    for _ in range(3):
+        pdhg.STATE_READS = 0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        out = pdhg._pdhg_solve(*args, max_iters=max_iters, tol=tol)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / 1e3)
+    reads = pdhg.STATE_READS
+    x, y, primal, dual, gap, done, iters = out
+    x = x.cpu().numpy().astype(np.float64)
+    y = y.cpu().numpy().astype(np.float64)
+    done = done.cpu().numpy()
+    med = statistics.median(times)
+    check(reads <= iters / 40 + 2,
+          f"{reads} host reads for {iters} iterations")
+    check(bool(np.all(np.isfinite(x))) and x.shape == (B, n), "x not finite")
+    sample = np.random.default_rng(17).choice(B, size=256, replace=False)
+    checked = 0
+    for i in sample:
+        if not done[i]:
+            continue
+        A64, b64, c64 = (A[i].astype(np.float64), b[i].astype(np.float64),
+                         c[i].astype(np.float64))
+        ref = linprog(c64, A_ub=A64, b_ub=b64, method="highs")
+        z = float(c64 @ x[i])
+        check(ref.status == 0 and _pdhg_gate(ref.fun, z),
+              f"PDHG instance {i}: {z!r} vs HiGHS {ref.fun!r}")
+        scale = 1.0 + max(np.abs(b64).max(), np.abs(c64).max())
+        pr = np.maximum(A64 @ x[i] - b64, 0.0).max()
+        du = np.maximum(-(c64 + A64.T @ y[i]), 0.0).max()
+        gp = abs(c64 @ x[i] + b64 @ y[i])
+        check(pr <= tol * scale and du <= tol * scale
+              and gp <= 10 * tol * scale,
+              f"PDHG instance {i}: f64 residuals {pr!r} {du!r} {gp!r} over "
+              f"tol*scale {tol * scale!r}")
+        checked += 1
+    check(checked >= 200, f"only {checked} of 256 sampled converged")
+    log(f"[pdhg] {B} x ({m}x{n}) f32, bench_pdhg's cell, on {gpu}: device "
+        f"solve {med!r} s (median of 3 on CUDA events, all "
+        f"{[round(t, 4) for t in times]}) = {B / med!r} LPs/s; {iters} "
+        f"iterations, converged {float(done.mean())!r} "
+        f"({int(done.sum())}), host reads {reads} (limit "
+        f"{iters / 40 + 2!r}); {checked} converged of 256 sampled within "
+        f"2e-3 of HiGHS and their f64 residuals within tol*scale")
+    wall, dev_us, mv_us = _profile_ops(
+        torch, lambda: pdhg._pdhg_solve(*args, max_iters=401, tol=tol),
+        "aten::bmm")
+    if dev_us:
+        log(f"[pdhg-profile] the first 401 iterations under torch.profiler "
+            f"on {gpu}: wall {wall!r} s, device time {dev_us / 1e3!r} ms = "
+            f"{dev_us / 1e6 / wall!r} of the wall; the matvecs (aten::bmm) "
+            f"{mv_us / 1e3!r} ms = {mv_us / dev_us!r} of the device time, "
+            f"elementwise and reductions the rest; "
+            f"{(wall - dev_us / 1e6) / 401 * 1e3!r} ms a iteration off the "
+            f"device")
+    else:
+        log("[pdhg-profile] the profiler saw no device time")
+
+    Bb = min(4096, B)
+    rng = np.random.default_rng(18)
+    ub = np.where(rng.random((Bb, n)) < 0.6, rng.uniform(1.0, 3.0, (Bb, n)),
+                  np.inf)
+    t0 = time.perf_counter()
+    res = pt.PdhgSolver(tol=tol, max_iters=max_iters, device="cuda") \
+        .solve_arrays(-c[:Bb], A[:Bb], b[:Bb], np.full(m, -1),
+                      maximize=True, ub=ub)
+    wall_b = time.perf_counter() - t0
+    check(bool(np.all(res.x <= ub + 1e-4)), "bounded PDHG x above ub")
+    checked = 0
+    for i in np.random.default_rng(19).choice(Bb, size=min(512, Bb),
+                                              replace=False):
+        if not res.converged[i]:
+            continue
+        st, z_ref = _highs_bounded(-c[i].astype(np.float64),
+                                   A[i].astype(np.float64),
+                                   b[i].astype(np.float64), np.full(m, -1),
+                                   True, np.zeros(n), ub[i])
+        check(st == 0 and _pdhg_gate(z_ref, res.objective[i]),
+              f"bounded PDHG instance {i}: {res.objective[i]!r} vs HiGHS "
+              f"{z_ref!r}")
+        checked += 1
+    check(checked >= 0.75 * min(512, Bb),
+          f"only {checked} of the bounded sample converged")
+    log(f"[pdhg-bounded] {Bb} x ({m}x{n}) with 60 % of the variables "
+        f"bounded by U(1, 3), PdhgSolver.solve_arrays(ub=) on {gpu}: "
+        f"{res.iters} iterations, converged {float(res.converged.mean())!r}, "
+        f"wall {wall_b!r} s; {checked} converged of 512 sampled within 2e-3 "
+        f"of HiGHS")
+
+
+def stream_chunks(n_chunks, chunk, m, n, seed0):
+    """``bench.py::bench_stream``'s (seed0 100, 20x30) and
+    ``bench_stream_exact``'s (seed0 300, 30x50) chunk generator."""
+    for k in range(n_chunks):
+        rng = np.random.default_rng(seed0 + k)
+        A = rng.uniform(0.05, 1.0, size=(chunk, m, n)).astype(np.float32)
+        b = rng.uniform(1.0, 5.0, size=(chunk, m)).astype(np.float32)
+        c = rng.uniform(0.1, 1.0, size=(chunk, n)).astype(np.float32)
+        yield c, A, b, np.full((m,), -1)
+
+
+def phase_pdhg_stream(torch, pt, bk, pivot_kernel, gpu, chunk=250_000,
+                      n_chunks=2, m=20, n=30):
+    """Phase 18: the PDHG stream with crossover at ``bench_stream``'s chunk
+    width; then the per-instance crossover path."""
+    from scipy.optimize import linprog
+
+    from simplex_tpu_torch.models import pdhg
+
+    kept = []
+
+    def gen():
+        for batch in stream_chunks(n_chunks, chunk, m, n, 100):
+            kept.append(batch)
+            yield batch
+
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    t0 = time.perf_counter()
+    outs = []
+    for res in pdhg.solve_arrays_stream(
+            gen(), tol=1e-4, max_iters=10000, maximize=True,
+            crossover="unconverged", device="cuda"):
+        outs.append(res)
+    wall = time.perf_counter() - t0
+    k2 = bk.LAUNCHES
+    converged = recovered = checked = 0
+    for k, (res, (c, A, b, _)) in enumerate(zip(outs, kept)):
+        check(bool(np.all(res.converged)),
+              f"chunk {k}: {int(np.sum(~res.converged))} instances neither "
+              f"converged nor recovered")
+        n_rec = len(res.exact or {})
+        recovered += n_rec
+        converged += chunk - n_rec
+        for i in list(res.exact or {})[:32]:
+            r = res.exact[i]
+            ref = linprog(-c[i].astype(np.float64),
+                          A_ub=A[i].astype(np.float64),
+                          b_ub=b[i].astype(np.float64), method="highs")
+            check(r.success and _gate(-ref.fun, r.z)
+                  and _gate(-ref.fun, res.objective[i]),
+                  f"chunk {k} instance {i}: recovered z={r.z!r} vs HiGHS "
+                  f"{-ref.fun!r}")
+            checked += 1
+    A, b, c = (torch.as_tensor(a, device="cuda")
+               for a in (kept[0][1], kept[0][2], -kept[0][0]))
+    is_eq = torch.zeros((chunk, m), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = pdhg._pdhg_solve(A, b, c, is_eq, max_iters=10000, tol=1e-4)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t1
+    del A, b, c, is_eq, out
+    log(f"[pdhg-stream] {n_chunks} chunks of {chunk} x ({m}x{n}) (half of "
+        f"bench_stream's 1M cell, at its full chunk width), seeds 100+k, "
+        f"crossover='unconverged', on {gpu}: wall {wall!r} s = "
+        f"{n_chunks * chunk / wall!r} LPs/s end to end; {converged} "
+        f"converged, {recovered} recovered by the batched crossover "
+        f"({k2} K2 launches), every instance one or the other; {checked} "
+        f"recovered vertices within 1e-6 (1+|z|) of HiGHS; chunk walls "
+        f"{[round(r.solve_time, 3) for r in outs]} s; the device solve "
+        f"re-timed on a staged chunk {dev_s!r} s, x {n_chunks} = "
+        f"{dev_s * n_chunks!r} s, wall / that {wall / (dev_s * n_chunks)!r}")
+
+    B = 32
+    c, A, b = (a[:B] for a in kept[0][:3])
+    pivot_kernel.LAUNCHES = 0
+    t2 = time.perf_counter()
+    res = next(pdhg.solve_arrays_stream(
+        iter([(c, A, b, np.full(m, -1))]), tol=1e-4, max_iters=10000,
+        maximize=True, crossover="all", device="cuda"))
+    wall_x = time.perf_counter() - t2
+    check(len(res.exact) == B and all(r.success for r in res.exact.values()),
+          "crossover='all' on 32 instances: not every vertex recovered")
+    for i, r in res.exact.items():
+        ref = linprog(-c[i].astype(np.float64), A_ub=A[i].astype(np.float64),
+                      b_ub=b[i].astype(np.float64), method="highs")
+        check(_gate(-ref.fun, r.z), f"crossover_batch instance {i}: "
+              f"z={r.z!r} vs HiGHS {-ref.fun!r}")
+    nits = [r.nit for r in res.exact.values()]
+    log(f"[crossover] {B} instances, crossover='all' (crossover_batch, one "
+        f"reoptimize an instance) on {gpu}: all recovered, z within "
+        f"1e-6 (1+|z|) of HiGHS, dual pivots mean {float(np.mean(nits))!r} "
+        f"max {max(nits)}, K1 launches {pivot_kernel.LAUNCHES}, wall "
+        f"{wall_x!r} s")
+    return k2
+
+
+def _chrome_overlap(path, kernel_key):
+    """From a ``torch.profiler`` chrome trace: the host-to-device copies
+    on another stream than the kernels whose name holds ``kernel_key``,
+    and how many of them overlap one of those kernels in time."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+               for e in events if e.get("cat") == "kernel"
+               and kernel_key in e.get("name", "")]
+    streams = {s for _, _, s in kernels}
+    copies = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+              for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    side = [cp for cp in copies if cp[2] not in streams]
+    overlapping = [cp for cp in side
+                   if any(k0 < cp[1] and cp[0] < k1 for k0, k1, _ in kernels)]
+    return len(kernels), len(side), len(overlapping)
+
+
+def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
+                         n_chunks=4, m=30, n=50, Bm=16384):
+    """Phase 19: ``models/batched.solve_arrays_stream`` at
+    ``bench_stream_exact``'s chunk, certified; its overlaps; then a mixed
+    classic / bounded stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch.models import batched as tmb
+
+    from simplex_tpu_torch.runtime import staging
+
+    cfg = pt.SolverConfig(device="cuda")
+    for _ in pt.solve_arrays_stream(stream_chunks(1, 1024, m, n, 300), cfg):
+        pass                                              # warm-up
+    gen_s = [0.0]
+
+    def timed_chunks():
+        chunks = stream_chunks(n_chunks, chunk, m, n, 300)
+        while True:
+            t = time.perf_counter()
+            batch = next(chunks, None)
+            gen_s[0] += time.perf_counter() - t
+            if batch is None:
+                return
+            yield batch
+
+    bk.LAUNCHES = 0
+    with _Timed(tmb, "_run_batch", torch) as runs, \
+            _Timed(tmb, "certify_uniform_result") as certs, \
+            _Timed(staging, "stage") as stages:
+        t0 = time.perf_counter()
+        outs = list(pt.solve_arrays_stream(timed_chunks(), cfg))
+        wall = time.perf_counter() - t0
+    for k, res in enumerate(outs):
+        check(bool(np.all(res.status == 0)) and bool(np.all(res.certified)),
+              f"stream chunk {k}: not all optimal and certified")
+    overlaps = [certs.calls[k][0] < runs.calls[k + 1][1]
+                and runs.calls[k + 1][0] < certs.calls[k][1]
+                for k in range(n_chunks - 1)]
+    check(all(overlaps), f"certify k / solve k+1 overlaps: {overlaps}")
+    solve_s = sum(r.solve_time for r in outs)
+    cert_s = certs.seconds()
+    serial = gen_s[0] + stages.seconds() + runs.seconds() + cert_s
+    c, A, b, ops = next(stream_chunks(1, chunk, m, n, 300))
+    ref = pt.BatchedSimplexSolver(cfg).solve_arrays(c, A, b, ops,
+                                                    maximize=True)
+    for f in ("status", "pivots", "z", "x", "certified"):
+        check(np.array_equal(getattr(ref, f), getattr(outs[0], f)),
+              f"stream chunk 0: {f} differs from solve_arrays")
+    log(f"[stream-exact] {n_chunks} chunks of {chunk} x ({m}x{n}), seeds "
+        f"300+k, certified, on {gpu}: all optimal and certified, "
+        f"escalated {sum(r.n_escalated for r in outs)}; wall {wall!r} s = "
+        f"{n_chunks * chunk / wall!r} LPs/s (generation included); "
+        f"sum of device solves {solve_s!r} s, sum of certify {cert_s!r} s, "
+        f"of generation {gen_s[0]!r} s, of staging (pinned copy, uploads "
+        f"issued) {stages.seconds()!r} s; wall / the serial sum of the four "
+        f"(the solves as _run_batch with syncs, {runs.seconds()!r} s) "
+        f"{wall / serial!r}; certify "
+        f"of chunk k overlapped the solve of chunk k+1 on the host clock "
+        f"for every k; K2 launches {bk.LAUNCHES}; chunk 0 equals "
+        f"solve_arrays in status, pivots, x and z bit for bit")
+
+    path = os.path.join(tmpdir, "stream_trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in pt.solve_arrays_stream(
+                stream_chunks(2, chunk, m, n, 300), cfg):
+            pass
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    n_k2, n_side, n_over = _chrome_overlap(path, "fused_pivot_step_kernel")
+    check(n_over >= 1, f"no upload on the side stream overlapped a K2 "
+          f"launch ({n_side} side-stream uploads, {n_k2} K2 launches)")
+    log(f"[stream-exact-profile] two chunks under torch.profiler on {gpu}: "
+        f"{n_side} host-to-device copies on the side stream, {n_over} of "
+        f"them overlapping one of the {n_k2} K2 launches")
+
+    classic, bounded = bench_batch(Bm), bench_bounded_batch(Bm)
+    mixed = [classic, bounded, classic, bounded]
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    t1 = time.perf_counter()
+    outs = list(pt.solve_arrays_stream(iter(mixed), cfg))
+    wall_m = time.perf_counter() - t1
+    k2, k3 = bk.LAUNCHES, bk.LAUNCHES_K3
+    check(k2 > 0 and k3 > 0, f"mixed stream: K2 {k2}, K3 {k3} launches")
+    solver = pt.BatchedSimplexSolver(cfg)
+    refs = [solver.solve_arrays(*bt[:4], maximize=True,
+                                ub=bt[4] if len(bt) > 4 else None)
+            for bt in (classic, bounded)]
+    for k, res in enumerate(outs):
+        ref = refs[k % 2]
+        for f in ("status", "pivots", "z", "x", "certified"):
+            check(np.array_equal(getattr(ref, f), getattr(res, f)),
+                  f"mixed stream batch {k}: {f} differs from solve_arrays")
+        check((res.at_upper is not None) == (k % 2 == 1),
+              f"mixed stream batch {k}: at_upper")
+    log(f"[stream-mixed] 4 x {Bm} x (30x50): phase 8's batch and phase "
+        f"11's bounded batch in turns, on {gpu}: each equal to "
+        f"solve_arrays on its batch; wall {wall_m!r} s; K2 launches {k2}, "
+        f"K3 launches {k3}")
+    return k2, k3
+
+
 def main():
     import torch
 
@@ -1818,7 +2374,7 @@ def main():
         f"{profiling.DEFAULT_METRICS.summary()}")
 
     # 5. the main path at full size
-    launches = phase_solve(torch, pt, pivot_kernel, gpu)
+    launches, basis_2048 = phase_solve(torch, pt, pivot_kernel, gpu)
 
     # 6. K2 against its twin, 7. timed
     k2_err = phase_k2(torch, bk, compile_batch_uniform)
@@ -1885,11 +2441,29 @@ def main():
     phase_revised(torch, pt, gpu)
     t_web = time.perf_counter()
     phase_web(torch, cli, pivot_kernel, profiling, gpu)
+
+    # 16. the dual reoptimizer (K1), 17. PDHG, 18. the PDHG stream with
+    # crossover (K2 in the batched recovery), 19. the batched stream (K2,
+    # K3)
+    t_new = time.perf_counter()
+    k1_dual = phase_reoptimize(torch, pt, pivot_kernel, gpu, basis_2048)
+    k1_dual_b = phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu)
+    t_pdhg = time.perf_counter()
+    phase_pdhg(torch, pt, gpu)
+    t_pstream = time.perf_counter()
+    k2_pdhg = phase_pdhg_stream(torch, pt, bk, pivot_kernel, gpu)
+    t_bstream = time.perf_counter()
+    k2_stream, k3_stream = phase_batched_stream(torch, pt, bk, gpu, tmp.name)
     tmp.cleanup()
     t_end = time.perf_counter()
-    log(f"[done] phases 1-15 in {t_end - t_start!r} s, of which phases "
+    log(f"[path] launches on this slice's paths: K1 {k1_dual} (phase 16 a) "
+        f"and {k1_dual_b} (16 b); K2 {k2_pdhg} (phase 18's recovery) and "
+        f"{k2_stream} (phase 19's mixed stream); K3 {k3_stream} (phase 19)")
+    log(f"[done] phases 1-19 in {t_end - t_start!r} s, of which phases "
         f"9-11 {t_k4 - t_k3!r} s, 12-13 {t_mps - t_k4!r} s, 14 "
-        f"{t_web - t_mps!r} s and 15 {t_end - t_web!r} s")
+        f"{t_web - t_mps!r} s, 15 {t_new - t_web!r} s, 16 "
+        f"{t_pdhg - t_new!r} s, 17 {t_pstream - t_pdhg!r} s, 18 "
+        f"{t_bstream - t_pstream!r} s and 19 {t_end - t_bstream!r} s")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",

@@ -15,7 +15,10 @@ as in the JAX package:
   upper bounds ``ub``;
 * :func:`solve_lp_sweep` — a pile of unrelated LPs with general bounds,
   bucketed by shape on the host and solved bucket by bucket through
-  ``solve_arrays``.
+  ``solve_arrays``;
+* :func:`solve_arrays_stream` — an iterable of uniform batches, each
+  solved as ``solve_arrays`` solves it, batch k+1 staged and batch k
+  certified while the device works.
 
 Every verdict is f64-certified on the host and untrusted ones are re-solved
 exactly (``models/certify.py``) when ``config.certify`` is on.
@@ -34,7 +37,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import SolverConfig, DEFAULT_CONFIG, resolve_dtype
+from ..config import SolverConfig, DEFAULT_CONFIG, resolve_dtype, torch_device
 from ..core.problem import (
     OP_EQ,
     OP_LE,
@@ -269,6 +272,29 @@ def compile_batch_uniform(c: np.ndarray, A: np.ndarray, b: np.ndarray,
     )
 
 
+def _batch_inputs(c, A, b, ops, maximize, dtype):
+    """Host side of the device assembly: the finiteness check, the static
+    artificial-block decision and the raw arrays the device needs, in their
+    device dtypes.  Returns ``(arrays, maximize, with_art)``, ``arrays``
+    being ``[c, A, b, ops (int32, (1|B, m)), maximize]``."""
+    A = np.asarray(A)
+    B, m, n = A.shape
+    for name, arr in (("c", c), ("A", A), ("b", b)):
+        if not np.all(np.isfinite(np.asarray(arr))):
+            raise ValueError(
+                f"Los datos del problema deben ser finitos: '{name}' "
+                f"contiene NaN/Inf.")
+    maximize = np.broadcast_to(np.asarray(maximize, bool), (B,)).copy()
+    dt = np.dtype(dtype)
+    b_np = np.asarray(b)
+    ops_np = np.asarray(ops, np.int64)
+    ops2 = ops_np if ops_np.ndim == 2 else ops_np[None, :]
+    with_art = bool(np.any(np.where(b_np < 0, -ops2, ops2) != OP_LE))
+    arrays = [np.asarray(c, dt), A.astype(dt, copy=False), b_np.astype(dt),
+              ops2.astype(np.int32), maximize]
+    return arrays, maximize, with_art
+
+
 def compile_batch_on_device(c, A, b, ops, maximize,
                             row_pad: int = 8, col_pad: int = 128,
                             dtype=np.float32,
@@ -284,28 +310,23 @@ def compile_batch_on_device(c, A, b, ops, maximize,
     JAX function: it is left out when every row is ``<=`` after the sign
     normalization, which halves the tableau's width.
     """
-    A = np.asarray(A)
-    B, m, n = A.shape
-    for name, arr in (("c", c), ("A", A), ("b", b)):
-        if not np.all(np.isfinite(np.asarray(arr))):
-            raise ValueError(
-                f"Los datos del problema deben ser finitos: '{name}' "
-                f"contiene NaN/Inf.")
-    maximize = np.broadcast_to(np.asarray(maximize, bool), (B,)).copy()
-    dt_np, dt = resolve_dtype(np.dtype(dtype).name)
-    b_np = np.asarray(b)
-    ops_np = np.asarray(ops, np.int64)
-    ops2 = ops_np if ops_np.ndim == 2 else ops_np[None, :]
-    with_art = bool(np.any(np.where(b_np < 0, -ops2, ops2) != OP_LE))
-
+    arrays, maximize, with_art = _batch_inputs(c, A, b, ops, maximize,
+                                               dtype)
     dev = torch.device(device)
+    return _assemble_on_device(
+        [torch.as_tensor(a, device=dev) for a in arrays], maximize,
+        with_art, row_pad, col_pad, align_total, ub)
 
-    def put(a, t_dtype):
-        return torch.as_tensor(np.asarray(a), device=dev).to(t_dtype)
 
-    c_t, A_t, b_t = put(c, dt), put(A, dt), put(b, dt)
-    ops_t = put(ops2, torch.int32)
-    max_t = put(maximize, torch.bool)
+def _assemble_on_device(tensors, maximize, with_art: bool, row_pad: int,
+                        col_pad: int, align_total: bool,
+                        ub) -> CompiledBatch:
+    """The device half of :func:`compile_batch_on_device`: ``tensors`` are
+    :func:`_batch_inputs`'s arrays on the device (uploaded there or staged
+    by ``runtime/staging.py``)."""
+    c_t, A_t, b_t, ops_t, max_t = tensors
+    dev, dt = A_t.device, A_t.dtype
+    B, m, n = A_t.shape
     c_min = torch.where(max_t[:, None], -c_t, c_t)
 
     neg = b_t < 0
@@ -365,6 +386,7 @@ def compile_batch_on_device(c, A, b, ops, maximize,
         need_p1 = torch.zeros((B,), dtype=torch.bool, device=dev)
         T[:, m_pad, :] = obj_row_p2
 
+    dt_np = np.dtype(str(dt).replace("torch.", ""))
     ub_ext = _build_ub_ext(ub, B, n, n_pad, dt_np)
     if ub_ext is not None:
         live = torch.as_tensor(ub_ext != 0.0, device=dev)  # fixed columns
@@ -784,3 +806,71 @@ def solve_lp_sweep(lps: Sequence[LinearProgram],
                      else float(res.z[k]))
             results[i] = (x, z, int(res.status[k]), ok)
     return results
+
+
+def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
+                        maximize=True):
+    """Pipelined sweep over an iterable of ``(c, A, b, ops[, ub])`` batches.
+
+    Same contract as the JAX function: one :class:`BatchResult` a batch, in
+    order, each equal to :meth:`BatchedSimplexSolver.solve_arrays` on that
+    batch (the same assembly, kernels and certifier); a batch with a fifth
+    element ``ub`` runs the bounded solver (K3), and bounded and classic
+    batches may mix in one stream; ``config.certify`` certifies every batch.
+
+    The overlap the JAX function gets from asynchronous dispatch is explicit
+    here, because the solve loop reads its state once a chunk and so blocks
+    the host:
+
+    * batch k+1's raw ``(c, A, b)`` are copied into pinned buffers and
+      their uploads issued on a side stream (``runtime/staging.py``) before
+      batch k's loop starts; the compute stream waits on the upload's event
+      before it assembles batch k+1 (``_assemble_on_device``);
+    * batch k is certified on one worker thread, which touches numpy
+      results only, while batch k+1 solves; batch k is yielded once its
+      certificate is done.
+
+    Raises where ``config.device`` is a GPU and none is present.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..runtime import staging
+
+    dev = torch_device(config.device)
+    dtype = np.dtype(config.dtype)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def stage(batch):
+        arrays, maxi, with_art = _batch_inputs(*batch[:4], maximize, dtype)
+        return staging.stage(arrays, dev, side), maxi, with_art, batch
+
+    it = iter(batches)
+    try:
+        nxt = stage(next(it))
+    except StopIteration:
+        return
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = None              # the previous batch's certificate
+        while nxt is not None:
+            staged, maxi, with_art, raw = nxt
+            ub = raw[4] if len(raw) > 4 else None
+            cb = _assemble_on_device(staged.tensors(), maxi, with_art,
+                                     row_pad=8, col_pad=128,
+                                     align_total=True, ub=ub)
+            # Stage the NEXT batch before this one's loop starts.
+            try:
+                nxt = stage(next(it))
+            except StopIteration:
+                nxt = None
+            res = _run_batch(cb, config)
+            del cb, staged
+            if not config.certify:
+                yield res
+                continue
+            done = pool.submit(certify_uniform_result, res, *raw[:4], maxi,
+                               ub=ub)
+            if pending is not None:
+                yield pending.result()
+            pending = done
+        if pending is not None:
+            yield pending.result()

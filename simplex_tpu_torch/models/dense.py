@@ -7,11 +7,17 @@ every optimal verdict is KKT-certified on the host in float64, and a failed
 or non-optimal verdict is re-solved exactly by the host f64 engine, as in
 the JAX package.
 
-The host-side numpy helpers (padding plan, result type, f64 finalization,
-the bounded f64 finalization of the revised engine, the host f64
-simplex, warm start, equilibration gate) are copied from
-``simplex_tpu/models/dense.py`` as they are; only :func:`solve_lp`'s device
-calls change.  ``SimplexResult`` gains one field, ``escalated``.
+:func:`reoptimize` (and the facade :class:`DenseSimplexSolver`) is the
+dual-simplex reoptimizer: from a previously optimal basis after a change of
+``b``, through ``ops/tableau.py::solve_tableau_dual`` (or its bounded
+twin), K1 doing every pivot on a CUDA device.
+
+The host-side numpy helpers (padding plan, result type, f64 refinement,
+sensitivity, finalization and certification, the bounded f64 finalization
+of the revised engine, the host f64 simplex, warm start, equilibration
+gate) are copied from ``simplex_tpu/models/dense.py`` as they are; only
+the device calls of :func:`solve_lp` and :func:`reoptimize` change.
+``SimplexResult`` gains one field, ``escalated``.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import SolverConfig, DEFAULT_CONFIG, resolve_dtype
+from ..config import SolverConfig, DEFAULT_CONFIG, resolve_dtype, torch_device
 from ..core.problem import (
     LinearProgram,
     StandardForm,
@@ -101,6 +107,74 @@ class SimplexResult:
 
     def variable_values(self, variables: List[str]) -> Dict[str, float]:
         return {v: float(self.x[i]) for i, v in enumerate(variables)}
+
+
+def _refine_on_host(sf: StandardForm, lp: LinearProgram,
+                    basis: np.ndarray) -> Optional[np.ndarray]:
+    """Re-solve the final basis system in float64 on the host.
+
+    The f32 device loop decides *which* basis is optimal; this recovers the
+    exact vertex for that basis: ``B x_B = b`` with B the basic columns of the
+    float64 standard-form matrix.
+    """
+    m = sf.n_rows
+    basis = np.asarray(basis[:m], dtype=np.int64)
+    if np.any(basis >= sf.n_cols):  # a padding column is basic → bail out
+        return None
+
+    # Rebuild the float64 initial tableau columns (compile once more in f64).
+    sf64 = compile_standard_form(lp, dtype=np.float64)
+    A_full = sf64.tableau[:m, : sf.n_cols]
+    b = sf64.tableau[:m, sf64.n_pad]
+    B = A_full[:, basis]
+    try:
+        x_b = np.linalg.solve(B, b)
+    except np.linalg.LinAlgError:
+        x_b, *_ = np.linalg.lstsq(B, b, rcond=None)
+    if not np.all(np.isfinite(x_b)):
+        return None
+    x = np.zeros((sf.n_cols,), dtype=np.float64)
+    x[basis] = x_b
+    return x
+
+
+def _sensitivity_on_host(sf: StandardForm, lp: LinearProgram,
+                         basis: np.ndarray):
+    """Shadow prices and reduced costs from the optimal basis (host f64).
+
+    The simplex multipliers of the min-form standard problem are
+    ``y' = c_B' B^-1`` (one dense triangular-ish solve); reduced costs are
+    ``rc = c - y'A``.  Signs are mapped back to the USER's orientation:
+    standard-form row i is ``s_i * (original row i)`` (rows with negative
+    rhs were flipped during compilation), and user Z is ``-Z_min`` for
+    maximize — so ``dZ_user/db_i = (max ? -1 : 1) * s_i * y_i``.  This is
+    capability the reference throws away: HiGHS computes marginals but
+    ``solver_controller.py`` never reads them.
+
+    Returns ``(duals, reduced_costs)`` or ``(None, None)`` when the basis
+    includes padding columns or is numerically singular.
+    """
+    m = sf.n_rows
+    basis = np.asarray(basis[:m], dtype=np.int64)
+    if np.any(basis >= sf.n_cols):
+        return None, None
+    sf64 = compile_standard_form(lp, dtype=np.float64)
+    A_full = sf64.tableau[:m, : sf.n_cols]
+    c_full = sf64.obj_row_p2[: sf.n_cols]
+    B = A_full[:, basis]
+    try:
+        y = np.linalg.solve(B.T, c_full[basis])
+    except np.linalg.LinAlgError:
+        return None, None
+    if not np.all(np.isfinite(y)):
+        return None, None
+    rc_min = c_full - y @ A_full
+
+    user_sign = -1.0 if lp.maximize else 1.0
+    row_sign = np.where(lp.b < 0, -1.0, 1.0)       # compile-time row flips
+    duals = user_sign * row_sign * y
+    reduced = user_sign * rc_min[: lp.n_vars]
+    return duals, reduced
 
 
 def _finalize_on_host(sf: StandardForm, lp: LinearProgram,
@@ -229,6 +303,47 @@ def _finalize_on_host_bounded(sf: StandardForm, lp: LinearProgram,
         and bool(np.all(rc_min[up_side] <= tol * c_scale))
     )
     return certified, x_full, duals, reduced
+
+
+def _certify_optimal_basis(sf: StandardForm, lp: LinearProgram,
+                           basis: np.ndarray, tol: float = 1e-7) -> bool:
+    """f64 KKT check of a device-optimal basis (host).
+
+    The f32 device loop can be defeated by exactly-dependent columns — e.g.
+    the ± pairs a free-variable split produces: round-off drift lets a
+    dependent column into the basis, the basis matrix turns singular, and
+    refactorization against it can certify a false verdict.  So every
+    'optimal' claimed by the f32 loop is re-checked here in float64:
+    primal feasibility (``B x_B = b`` with ``x_B >= -tol``), dual
+    feasibility (``rc >= -tol`` over phase-2 columns), and no artificial
+    basic above tolerance.
+    """
+    m = sf.n_rows
+    basis = np.asarray(basis[:m], dtype=np.int64)
+    if np.any(basis >= sf.n_cols):
+        return False
+    sf64 = compile_standard_form(lp, dtype=np.float64)
+    A_full = sf64.tableau[:m, : sf.n_cols]
+    b = sf64.tableau[:m, sf64.n_pad]
+    c_full = sf64.obj_row_p2[: sf.n_cols]
+    B = A_full[:, basis]
+    try:
+        x_B = np.linalg.solve(B, b)
+        y = np.linalg.solve(B.T, c_full[basis])
+    except np.linalg.LinAlgError:
+        return False
+    if not (np.all(np.isfinite(x_B)) and np.all(np.isfinite(y))):
+        return False
+    scale = 1.0 + float(np.max(np.abs(b))) if b.size else 1.0
+    if np.any(x_B < -tol * scale):
+        return False
+    art = (sf.col_mask_p1 & ~sf.col_mask_p2)[: sf.n_cols]
+    if np.any(art[basis] & (np.abs(x_B) > tol * scale)):
+        return False
+    rc = c_full - y @ A_full
+    c_scale = 1.0 + float(np.max(np.abs(c_full)))
+    valid = sf.col_mask_p2[: sf.n_cols]
+    return bool(np.all(rc[valid] >= -tol * c_scale))
 
 
 def _host_simplex_f64(sf64: StandardForm, max_iters: int = 100000,
@@ -795,3 +910,238 @@ def solve_lp(lp: LinearProgram,
         solve_time=time.perf_counter() - t0,
         duals=duals, reduced_costs=reduced, escalated=escalated,
     )
+
+
+def reoptimize(lp: LinearProgram, basis: np.ndarray,
+               config: SolverConfig = DEFAULT_CONFIG,
+               at_upper: Optional[np.ndarray] = None) -> SimplexResult:
+    """Dual-simplex reoptimization from a previously optimal basis, on
+    ``config.device``.
+
+    Same contract as ``simplex_tpu.models.dense.reoptimize``: after a
+    change of ``b`` the old basis stays dual-feasible but may go
+    primal-infeasible, and the dual loop (``ops/tableau.py::
+    solve_tableau_dual``, its pivots through K1) iterates the
+    infeasibilities away.  A bounded LP reoptimizes from the parent's
+    ``(basis, at_upper)`` through the bounded dual loop.  A stale basis
+    (wrong shape, singular, artificial basic, not dual-feasible) or a
+    verdict that fails f64 certification falls back to a cold
+    :func:`solve_lp`.  Raises where ``config.device`` is a GPU and none is
+    present.
+    """
+    t0 = time.perf_counter()
+    dtype, torch_dtype = resolve_dtype(config.dtype)
+    device = torch_device(config.device)
+    if lp.has_finite_bounds:
+        if at_upper is None:
+            # No at-upper state from the parent: a bounded vertex is not
+            # identified by the basis alone, so cold-start.
+            return solve_lp(lp, config)
+        return _reoptimize_bounded(lp, basis, at_upper, config, t0)
+    if lp.has_free:
+        lp2, fidx = split_free_variables(lp)
+        res = reoptimize(lp2, basis, config)
+        if res.x is not None:
+            res.x = merge_free_solution(res.x, lp.n_vars, fidx)
+        if res.reduced_costs is not None:
+            res.reduced_costs = res.reduced_costs[: lp.n_vars]
+        return res
+    if lp.n_cons == 0 or basis is None:
+        return solve_lp(lp, config)
+
+    row_pad, col_pad = _pad_plan(lp)
+    sf = compile_standard_form(lp, row_pad=row_pad, col_pad=col_pad,
+                               dtype=dtype)
+    m_pad, n_pad = sf.m_pad, sf.n_pad
+    basis = np.asarray(basis, dtype=np.int32).reshape(-1)
+    if basis.shape[0] != m_pad or np.any(basis < 0) or np.any(basis >= n_pad):
+        return solve_lp(lp, config)
+    art_cols = sf.col_mask_p1 & ~sf.col_mask_p2
+    if np.any(art_cols[basis]):
+        return solve_lp(lp, config)
+
+    tol = float(config.tol if dtype == np.float64 else max(config.tol, 1e-6))
+    max_iters = min(config.max_iters, 50 * (m_pad + n_pad))
+    if device.type == "cuda":
+        # The refactors' products in full f32, as the reference runs them.
+        torch.backends.cuda.matmul.allow_tf32 = False
+    basis_t = torch.as_tensor(basis.astype(np.int64), device=device)
+    if 4096 < m_pad <= 8192:
+        # Large-m path (see the JAX function): the warm refactor runs on
+        # the device; only the objective row returns to the host for the
+        # dual-feasibility gate.
+        T_dev, ok = tableau_ops.refactor_tableau(
+            torch.as_tensor(sf.tableau[:m_pad], device=device).to(
+                torch_dtype), basis_t,
+            torch.as_tensor(sf.obj_row_p2, device=device).to(torch_dtype))
+        obj = T_dev[-1].cpu().numpy().astype(np.float64)
+        if not bool(ok) or not np.all(np.isfinite(obj)):
+            return solve_lp(lp, config)
+        if not np.all(obj[:n_pad][sf.col_mask_p2] >= -10 * tol):
+            return solve_lp(lp, config)
+        T_in = T_dev
+    else:
+        # Refactor for the new data under the old basis (f64 host).
+        T0 = sf.tableau.astype(np.float64)
+        rows = T0[:m_pad]
+        try:
+            T_rows = np.linalg.solve(rows[:, basis], rows)
+        except np.linalg.LinAlgError:
+            return solve_lp(lp, config)
+        if not np.all(np.isfinite(T_rows)):
+            return solve_lp(lp, config)
+        obj = sf.obj_row_p2.astype(np.float64).copy()
+        obj -= obj[basis] @ T_rows
+        rc_ok = np.all(obj[:n_pad][sf.col_mask_p2] >= -10 * tol)
+        if not rc_ok:                   # costs changed too: not dual-feasible
+            return solve_lp(lp, config)
+        T_in = torch.as_tensor(np.concatenate(
+            [T_rows, obj[None, :]], axis=0).astype(dtype), device=device)
+
+    T_d, basis_d, status, nit = tableau_ops.solve_tableau_dual(
+        T_in.contiguous(), basis_t,
+        torch.as_tensor(sf.col_mask_p2, device=device),
+        tol=tol, max_iters=int(max_iters),
+        bland_after=int(min(config.bland_after, max_iters // 2)),
+        devex=config.pivot_rule == "devex",
+    )
+    basis_np = basis_d.cpu().numpy().astype(np.int32)
+    # The f64 safety net: a verdict that fails certification (or any
+    # non-optimal verdict) goes to the cold primal solve.
+    if status != STATUS_OPTIMAL or \
+            not _certify_optimal_basis(sf, lp, basis_np):
+        return solve_lp(lp, config)
+
+    x_dev, z_min_dev = tableau_ops.extract_solution(T_d, basis_d, sf.n_vars)
+    x = x_dev.cpu().numpy().astype(np.float64)
+    c_min = -lp.c if lp.maximize else lp.c
+    fun = float(z_min_dev)
+    if config.refine:
+        x_full = _refine_on_host(sf, lp, basis_np)
+        if x_full is not None and np.all(x_full[: sf.n_cols] >= -1e-7):
+            x = x_full[: lp.n_vars]
+            fun = float(c_min @ x)
+    duals, reduced = _sensitivity_on_host(sf, lp, basis_np)
+    z_user = (-fun if lp.maximize else fun) + 0.0
+    return SimplexResult(
+        x=np.maximum(x, 0.0), fun=fun, status=0, success=True,
+        message=STATUS_MESSAGES[STATUS_OPTIMAL], nit=nit,
+        basis=basis_np, z=z_user, solve_time=time.perf_counter() - t0,
+        duals=duals, reduced_costs=reduced,
+    )
+
+
+def _reoptimize_bounded(lp: LinearProgram, basis: np.ndarray,
+                        at_upper: np.ndarray, config: SolverConfig,
+                        t0: float) -> SimplexResult:
+    """Warm bounded reoptimization through the bounded dual loop.
+
+    The parent's ``(basis, at_upper)`` lies in the NORMALIZED padded space
+    (``normalize_bounds`` + bounded ``compile_standard_form``, the revised
+    engine's layout or :func:`_pad_plan`'s).  Gates as in the JAX function:
+    basis shape and validity, no artificial basic, and two-sided f64 dual
+    feasibility; the verdict is f64-KKT-certified
+    (``_finalize_on_host_bounded``).  Any failure cold-starts.
+    """
+    from ..core.problem import normalize_bounds
+
+    dtype, torch_dtype = resolve_dtype(config.dtype)
+    device = torch_device(config.device)
+    lp_t, tr = normalize_bounds(lp)
+    if lp_t.has_free or lp_t.n_cons == 0 or basis is None:
+        return solve_lp(lp, config)
+    basis = np.asarray(basis, dtype=np.int32).reshape(-1)
+    # Column indices are pad-independent; only m_pad must line up.
+    sf = compile_standard_form(lp_t, dtype=np.float64, bounded=True)
+    if sf.m_pad != basis.shape[0]:
+        row_pad, col_pad = _pad_plan(lp_t)
+        sf = compile_standard_form(lp_t, row_pad=row_pad, col_pad=col_pad,
+                                   dtype=np.float64, bounded=True)
+    m_pad, n_pad = sf.m_pad, sf.n_pad
+    if basis.shape[0] != m_pad or np.any(basis < 0) \
+            or np.any(basis >= n_pad):
+        return solve_lp(lp, config)
+    art_cols = sf.col_mask_p1 & ~sf.col_mask_p2
+    if np.any(art_cols[basis]):
+        return solve_lp(lp, config)
+    ub_ext = (sf.ub_ext if sf.ub_ext is not None
+              else np.full((n_pad,), np.inf))
+    atu = np.zeros((n_pad,), bool)
+    au = np.asarray(at_upper, bool).reshape(-1)[:n_pad]
+    atu[: au.shape[0]] = au
+    atu &= np.isfinite(ub_ext[:n_pad])
+    atu[basis] = False
+
+    tol = float(config.tol if dtype == np.float64
+                else max(config.tol, 1e-6))
+    max_iters = min(config.max_iters, 50 * (m_pad + n_pad))
+
+    # f64 host refactor for the dual-feasibility gate (two-sided signs).
+    rows = sf.tableau[:m_pad].astype(np.float64)
+    try:
+        T_rows = np.linalg.solve(rows[:, basis], rows)
+    except np.linalg.LinAlgError:
+        return solve_lp(lp, config)
+    if not np.all(np.isfinite(T_rows)):
+        return solve_lp(lp, config)
+    obj = sf.obj_row_p2.astype(np.float64).copy()
+    obj -= obj[basis] @ T_rows
+    nonbasic = sf.col_mask_p2.copy()
+    nonbasic[basis] = False
+    lo_side = nonbasic & ~atu
+    up_side = nonbasic & atu
+    if not (np.all(obj[:n_pad][lo_side] >= -10 * tol)
+            and np.all(obj[:n_pad][up_side] <= 10 * tol)):
+        return solve_lp(lp, config)
+
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # Anchor tableau: RAW rows + raw phase-2 objective; the loop builds
+    # the effective (at-upper-adjusted) start itself.
+    T_anchor = np.concatenate(
+        [sf.tableau[:m_pad], sf.obj_row_p2[None, :]], axis=0).astype(dtype)
+    T_d, basis_d, atu_d, status, nit = \
+        tableau_ops.solve_tableau_dual_bounded(
+            torch.as_tensor(T_anchor, device=device),
+            torch.as_tensor(basis.astype(np.int64), device=device),
+            torch.as_tensor(sf.col_mask_p2, device=device),
+            torch.as_tensor(ub_ext, device=device).to(torch_dtype),
+            torch.as_tensor(atu, device=device),
+            tol=tol, max_iters=int(max_iters),
+            bland_after=int(min(config.bland_after, max_iters // 2)),
+            devex=config.pivot_rule == "devex",
+        )
+    basis_np = basis_d.cpu().numpy().astype(np.int32)
+    atu_np = atu_d.cpu().numpy()
+    if status != STATUS_OPTIMAL:
+        return solve_lp(lp, config)
+    certified, x_full, duals, reduced = _finalize_on_host_bounded(
+        sf, lp_t, basis_np, atu_np, sf64=sf)
+    if not certified or x_full is None:
+        return solve_lp(lp, config)
+
+    x_user = tr.restore_x(x_full[: lp_t.n_vars])
+    c_min = -lp.c if lp.maximize else lp.c
+    fun = float(c_min @ x_user)
+    z_user = (-fun if lp.maximize else fun) + 0.0
+    return SimplexResult(
+        x=x_user, fun=fun, status=0, success=True,
+        message=STATUS_MESSAGES[STATUS_OPTIMAL], nit=nit,
+        basis=basis_np, z=z_user, at_upper=atu_np,
+        solve_time=time.perf_counter() - t0,
+        duals=duals, reduced_costs=tr.restore_reduced(reduced),
+    )
+
+
+class DenseSimplexSolver:
+    """Object-style facade over :func:`solve_lp` / :func:`reoptimize`."""
+
+    def __init__(self, config: SolverConfig = DEFAULT_CONFIG):
+        self.config = config
+
+    def solve(self, lp: LinearProgram) -> SimplexResult:
+        return solve_lp(lp, self.config)
+
+    def reoptimize(self, lp: LinearProgram, basis: np.ndarray,
+                   at_upper: Optional[np.ndarray] = None) -> SimplexResult:
+        return reoptimize(lp, basis, self.config, at_upper=at_upper)

@@ -1,10 +1,12 @@
 """Dense tableau simplex on torch tensors (port of ``simplex_tpu/ops/tableau.py``).
 
-The main-path subset of the JAX module: pricing and the ratio test
-(:func:`select_pivot`), the rank-1 pivot through kernel K1
-(:func:`pivot_update`), exact refactorization, the Devex weights, the
-two-phase loop (:func:`solve_tableau`), solution extraction and the
-history-recording solve behind the reports (:func:`solve_tableau_history`).
+Pricing and the ratio test (:func:`select_pivot`), the rank-1 pivot
+through kernel K1 (:func:`pivot_update`), exact refactorization, the Devex
+weights, the two-phase loop (:func:`solve_tableau`), the dual loops that
+reoptimize from a dual-feasible basis (:func:`solve_tableau_dual`, and
+:func:`solve_tableau_dual_bounded` with native upper bounds), solution
+extraction and the history-recording solve behind the reports
+(:func:`solve_tableau_history`).
 
 Tableau convention (min form), as in the reference: ``T[:-1]`` are the
 constraint rows with the RHS in the last column; ``T[-1]`` holds the
@@ -19,8 +21,11 @@ Differences from the JAX module, all deliberate:
   Each step is branch-free on the device: pricing, the masked Devex update
   and K1 read a 0-d ``do_pivot`` flag instead of branching, so nothing is
   read back to the host per pivot.  The host reads the loop state once per
-  chunk and takes the accept / refactor decision there, which puts every
-  refactor on the same pivot count as the JAX loop.
+  chunk (counted in ``STATE_READS``) and takes the accept / refactor
+  decision there, which puts every refactor on the same pivot count as the
+  JAX loop.  The dual loops have the same shape.
+* ``_gather_col_single`` (a one-hot matmul, which spares the TPU a lane
+  gather) is an ``index_select``: the two agree for a finite tableau.
 * ``basis`` is int64 (torch's index type); the JAX package keeps int32.
 * ``newton_resync`` is not ported: the exact refactor (``torch.linalg``)
   has no size limit on the card.
@@ -45,6 +50,17 @@ from .pivot_kernel import pivot_update_
 RUNNING = -1  # internal sentinel while the pivot loop is active
 
 _INT_MAX = int(np.iinfo(np.int32).max)
+
+# Host reads of a solve loop's state since the counter was last reset to 0
+# (one a chunk).
+STATE_READS = 0
+
+
+def _read(*vals):
+    """The host's one read of the loop state a chunk: 0-d tensors as ints."""
+    global STATE_READS
+    STATE_READS += 1
+    return torch.stack([v.to(torch.int64) for v in vals]).tolist()
 
 
 def state_from_standard_form(sf: StandardForm, device, dtype) -> Dict:
@@ -231,9 +247,8 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
             stall = torch.where(improved, 0, stall)
             best = torch.minimum(best, obj)
 
-        want, opt, it, ni, st, sr = torch.stack([
-            want_stop.to(i64), optimal.to(i64), iters, no_imp, stall,
-            since_ref]).tolist()
+        want, opt, it, ni, st, sr = _read(want_stop, optimal, iters, no_imp,
+                                          stall, since_ref)
         if it >= max_iters or ni >= stall_limit:
             status = STATUS_ITERATION_LIMIT
             break
@@ -331,6 +346,274 @@ def extract_solution(T, basis, n_vars: int):
     x = torch.sum(torch.where(onehot, rhs[:, None], 0.0), dim=0)
     z_min = -T[-1, -1]
     return x, z_min
+
+
+# --------------------------------------------------------------------------- #
+# Dual simplex: reoptimization from a dual-feasible basis                     #
+# --------------------------------------------------------------------------- #
+def _dual_devex_update(w, T, r, s):
+    """Dual Devex weights after a pivot on ``(r, s)``, from the entering
+    column BEFORE the pivot (see the JAX function).  Returns new weights."""
+    m = w.shape[0]
+    alpha = T[:-1].index_select(1, s.reshape(1))[:, 0]
+    rr = torch.clamp_max(r, m - 1).reshape(1)
+    a_r = alpha.index_select(0, rr)
+    a_r = torch.where(torch.abs(a_r) > 0, a_r, 1.0)
+    q = alpha / a_r
+    w_r = w.index_select(0, rr)
+    w_new = torch.maximum(w, (q * q) * w_r)
+    is_r = torch.arange(m, device=w.device) == r
+    w_new = torch.where(is_r, torch.clamp_min(w_r / (a_r * a_r), 1.0), w_new)
+    return torch.where(torch.max(w_new) > 1e8, torch.ones_like(w_new), w_new)
+
+
+def _dual_entering(row_key, eligible, num, tol, use_bland):
+    """The dual ratio test over the eligible columns: ``num / row_key`` at
+    its minimum, the largest ``row_key`` in the tol-relaxed window (Harris),
+    or the first eligible column in stall mode.  Returns ``(s, no_pivot)``."""
+    safe = torch.where(eligible, row_key, 1.0)
+    ratios = torch.where(eligible, num / safe, math.inf)
+    min_ratio = torch.min(ratios)
+    window = eligible & (
+        ratios <= min_ratio + tol * (1.0 + torch.abs(min_ratio)))
+    s_harris = torch.argmax(torch.where(window, row_key, -math.inf))
+    # argmax of a bool mask needs an integer type on CUDA.
+    s_bland = torch.argmax(eligible.to(torch.int32))
+    return torch.where(use_bland, s_bland, s_harris), ~torch.any(eligible)
+
+
+def _dual_select(T, col_mask, w, tol, use_bland, devex):
+    """Leaving row and entering column of the classic dual step.  Returns
+    0-d tensors ``(r, s, primal_ok, no_pivot)``."""
+    rhs = T[:-1, -1]
+    infeas = rhs < -tol
+    r_min = torch.argmin(rhs)
+    if devex:
+        r_price = torch.argmax(torch.where(infeas, (rhs * rhs) / w,
+                                           -math.inf))
+    else:
+        r_price = r_min
+    # Stall mode: the most negative row (ties to the lowest index).
+    r = torch.where(use_bland, r_min, r_price)
+    row = T.index_select(0, r.reshape(1))[0, :-1]
+    eligible = col_mask & (row < -tol)
+    s, no_pivot = _dual_entering(-row, eligible,
+                                 torch.clamp_min(T[-1, :-1], 0.0), tol,
+                                 use_bland)
+    return r, s, ~torch.any(infeas), no_pivot
+
+
+def _dual_select_bounded(T, basis, col_mask, at_upper, ub, w, tol,
+                         use_bland, devex):
+    """The bounded dual step's choice: the largest two-sided violation
+    leaves (``leave_up`` when above its upper bound), and the entering
+    candidates are NONBASIC columns on the sign-adjusted row (the
+    self-pivot fix; see the JAX function).  Returns 0-d tensors
+    ``(r, s, primal_ok, no_pivot, leave_up)``."""
+    rhs = T[:-1, -1]
+    ub_B = ub.index_select(0, basis)
+    viol_lo = -rhs
+    viol_up = torch.where(torch.isfinite(ub_B), rhs - ub_B, -math.inf)
+    viol = torch.maximum(viol_lo, viol_up)
+    infeas = viol > tol
+    r_max = torch.argmax(torch.where(infeas, viol, -math.inf))
+    if devex:
+        r_price = torch.argmax(torch.where(infeas, (viol * viol) / w,
+                                           -math.inf))
+    else:
+        r_price = r_max
+    r = torch.where(use_bland, r_max, r_price)
+    r1 = r.reshape(1)
+    leave_up = ~(viol_lo.index_select(0, r1)[0]
+                 >= viol_up.index_select(0, r1)[0])
+    row = T.index_select(0, r1)[0, :-1]
+    rowp = torch.where(leave_up, -row, row)
+    basic = torch.zeros_like(col_mask).index_fill_(0, basis, True)
+    cand = col_mask & ~basic
+    eligible = (cand & ~at_upper & (rowp < -tol)) | \
+        (cand & at_upper & (rowp > tol))
+    rc = T[-1, :-1]
+    num = torch.where(at_upper, torch.clamp_min(-rc, 0.0),
+                      torch.clamp_min(rc, 0.0))
+    s, no_pivot = _dual_entering(torch.abs(rowp), eligible, num, tol,
+                                 use_bland)
+    return r, s, ~torch.any(infeas), no_pivot, leave_up
+
+
+def _refactor_bounded(T0_rows, basis, raw_obj, at_upper, ub_safe):
+    """:func:`refactor_tableau` with the at-upper columns' contribution
+    taken out of the RHS column.  Returns ``(T_new, ok)``."""
+    T_new, ok = refactor_tableau(T0_rows, basis, raw_obj)
+    u_vec = torch.where(at_upper, ub_safe, 0.0)
+    T_new[:, -1] -= T_new[:, :-1] @ u_vec
+    return T_new, ok & torch.all(torch.isfinite(T_new))
+
+
+def _run_dual(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
+              bland_after, refactor_every, devex, since0, bounds=None):
+    """Dual pivots until primal feasible (optimal), a row without an
+    entering column (infeasible) or the iteration cap, IN PLACE on ``T``
+    and ``basis`` (and ``bounds["at_upper"]``).
+
+    The JAX loop's three-way switch split as in :func:`_run_phase`: a chunk
+    of device steps only pivots, masked by ``do``; once a chunk the host
+    reads the state and accepts a verdict from a fresh refactor (or after
+    3 stalled confirms), or refactors.  The dual objective ``-T[-1, -1]``
+    does not decrease, so progress is a new maximum.  ``since0`` is the
+    refactor counter's start: 1 (the first verdict is confirmed) or 0 (``T``
+    is a fresh refactor).  Returns ``(iters, status)`` as host ints.
+    """
+    dev, dt = T.device, T.dtype
+    i64 = torch.int64
+    m, n_cols = T.shape[0] - 1, T.shape[1] - 1
+    w = torch.ones((m,), dtype=dt, device=dev)
+    iters = _full(0, i64, dev)
+    since_ref = _full(since0, i64, dev)
+    stall = _full(0, i64, dev)
+    no_imp = _full(0, i64, dev)
+    best = _full(-math.inf, dt, dev)
+    cols = torch.arange(n_cols, device=dev)
+
+    def improved_over(best_):
+        obj = -T[-1, -1]
+        return obj > best_ + tol * (1.0 + torch.abs(best_)), obj
+
+    while True:
+        for _ in range(refactor_every - since0 + 1):
+            use_bland = no_imp >= bland_after
+            if bounds is None:
+                r, s, primal_ok, no_pivot = _dual_select(
+                    T, col_mask, w, tol, use_bland, devex)
+            else:
+                at_upper, ub, ub_safe = (bounds["at_upper"], bounds["ub"],
+                                         bounds["ub_safe"])
+                r, s, primal_ok, no_pivot, leave_up = _dual_select_bounded(
+                    T, basis, col_mask, at_upper, ub, w, tol, use_bland,
+                    devex)
+            want_stop = primal_ok | no_pivot
+            do = ((~want_stop) & (since_ref < refactor_every)
+                  & (iters < max_iters))
+            if devex:
+                w = torch.where(do, _dual_devex_update(w, T, r, s), w)
+            if bounds is None:
+                pivot_update(T, basis, r, s, clamp_rhs=False, do_pivot=do)
+            else:
+                # Pre-flip: an entering column at its upper bound returns
+                # to its lower bound (RHS += column * u_s).
+                s1 = s.reshape(1)
+                u_s = torch.where(at_upper.index_select(0, s1)[0],
+                                  ub_safe.index_select(0, s1)[0], 0.0)
+                col_s = T.index_select(1, s1)[:, 0]
+                T[:, -1] = torch.where(do, T[:, -1] + u_s * col_s, T[:, -1])
+                at_upper = torch.where(do & (cols == s), False, at_upper)
+                j_out = basis.index_select(0, r.reshape(1))
+                pivot_update(T, basis, r, s, clamp_rhs=False, do_pivot=do)
+                # Post-flip: a variable that leaves above its upper bound
+                # parks at it (RHS -= post-pivot column * u_jout).
+                u_out = torch.where(
+                    leave_up, ub_safe.index_select(0, j_out)[0], 0.0)
+                col_out = T.index_select(1, j_out)[:, 0]
+                T[:, -1] = torch.where(do, T[:, -1] + (-u_out) * col_out,
+                                       T[:, -1])
+                bounds["at_upper"] = torch.where(do & (cols == j_out[0]),
+                                                 leave_up, at_upper)
+            step = do.to(i64)
+            since_ref = since_ref + step
+            iters = iters + step
+            improved, obj = improved_over(best)
+            no_imp = torch.where(improved, 0, no_imp + step)
+            stall = torch.where(improved, 0, stall)
+            best = torch.maximum(best, obj)
+
+        want, ok, it, st, sr = _read(want_stop, primal_ok, iters, stall,
+                                     since_ref)
+        if it >= max_iters:
+            status = STATUS_ITERATION_LIMIT
+            break
+        if want and (sr == 0 or st >= 3):
+            status = STATUS_OPTIMAL if ok else STATUS_INFEASIBLE
+            break
+        # Refactor branch: for a verdict (confirm) or for the period.
+        if bounds is None:
+            T_new, ok_t = refactor_tableau(T0_rows, basis, raw_obj)
+        else:
+            T_new, ok_t = _refactor_bounded(T0_rows, basis, raw_obj,
+                                            bounds["at_upper"],
+                                            bounds["ub_safe"])
+        T.copy_(torch.where(ok_t, T_new, T))
+        improved, obj = improved_over(best)
+        stall = torch.where(improved, 0, stall + int(bool(want)))
+        no_imp = torch.where(improved, 0, no_imp)
+        best = torch.maximum(best, obj)
+        since_ref = _full(0, i64, dev)
+        since0 = 0
+    return it, status
+
+
+def solve_tableau_dual(T0, basis0, col_mask, tol: float = 1e-6,
+                       max_iters: int = 16384, bland_after: int = 2048,
+                       refactor_every: int = 64, devex: bool = True):
+    """Dual simplex pivots on a tableau with nonnegative reduced costs.
+
+    Start state: a basis that is dual-feasible (``T[-1, :-1] >= -tol`` on
+    eligible columns) but possibly primal-infeasible (negative RHS), as
+    after a change of ``b`` under a previously optimal basis.  Rules as in
+    the JAX function: the leaving row by dual Devex (``rhs_r² / w_r`` over
+    the infeasible rows) or the most negative RHS, the entering column by
+    the Harris-stabilized dual ratio test, the stall-gated Bland fallback,
+    a refactor from ``T0`` every ``refactor_every`` pivots and a verdict
+    accepted from a fresh refactor only.  Each pivot runs K1 with the RHS
+    clamp off.
+
+    ``T0`` is left intact (it is the drift anchor).  Returns ``(T, basis,
+    status, iters)``: STATUS_OPTIMAL when the RHS is nonnegative,
+    STATUS_INFEASIBLE when a negative row has no eligible entry,
+    STATUS_ITERATION_LIMIT otherwise; ``status`` and ``iters`` host ints.
+    """
+    T = T0.clone()
+    basis = basis0.to(torch.int64).clone()
+    iters, status = _run_dual(T, basis, col_mask, T0[:-1], T0[-1], tol,
+                              max_iters, bland_after, refactor_every, devex,
+                              since0=1)
+    return T, basis, status, iters
+
+
+def solve_tableau_dual_bounded(T0, basis0, col_mask, ub, at_upper0,
+                               tol: float = 1e-6, max_iters: int = 16384,
+                               bland_after: int = 2048,
+                               refactor_every: int = 64,
+                               devex: bool = True):
+    """Dual simplex with native bounds ``0 <= x <= ub``.
+
+    The bounded mirror of :func:`solve_tableau_dual` (see the JAX function
+    for the rules): a basic variable is infeasible below 0 or above its
+    upper bound, the largest violation leaves, and the bound semantics ride
+    as two RHS axpys around the K1 pivot, both masked by the step's ``do``:
+    the pre-flip of an entering column at its upper bound and the post-flip
+    of a column that leaves at its upper bound.
+
+    ``T0`` holds the RAW rows and the raw phase-2 objective (the drift
+    anchor, left intact); the starting tableau is the refactor of
+    ``basis0`` with the at-upper columns subtracted.  ``ub`` is (n_cols,),
+    +inf where unbounded; ``at_upper0`` (n_cols,) bool, basic columns
+    False.  Returns ``(T, basis, at_upper, status, iters)``.
+    """
+    dt = T0.dtype
+    T0_rows, raw_obj = T0[:-1], T0[-1]
+    ub = ub.to(dt)
+    bounds = {"ub": ub,
+              "ub_safe": torch.where(torch.isfinite(ub), ub, 0.0),
+              "at_upper": at_upper0.to(torch.bool).clone()}
+    basis = basis0.to(torch.int64).clone()
+    T_start, ok = _refactor_bounded(T0_rows, basis, raw_obj,
+                                    bounds["at_upper"], bounds["ub_safe"])
+    T = torch.where(ok, T_start, T0).contiguous()
+    # since_ref starts at 0: T is a fresh refactor, so an immediate verdict
+    # is already confirmed.
+    iters, status = _run_dual(T, basis, col_mask, T0_rows, raw_obj, tol,
+                              max_iters, bland_after, refactor_every, devex,
+                              since0=0, bounds=bounds)
+    return T, basis, bounds["at_upper"], status, iters
 
 
 def solve_tableau_history(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p2,

@@ -45,7 +45,7 @@ COPIES = ["core/parsing.py", "core/problem.py", "core/presolve.py",
           "services/storage.py", "services/viz.py", "models/certify.py",
           "utils/mps.py", "controllers/cli_io.py", "services/pdf.py",
           "web/microweb.py", "models/host.py", "runtime/native/__init__.py",
-          "runtime/native/simplex_host.cpp"]
+          "runtime/native/simplex_host.cpp", "models/crossover.py"]
 # Files the web app reads, copied byte for byte (no header line).
 WEB_FILES = ["web/templates/base.html", "web/templates/index.html",
              "web/templates/load_problem.html",
@@ -92,6 +92,23 @@ def test_web_files_are_all_copied():
 def test_finalize_on_host_bounded_is_verbatim():
     assert inspect.getsource(t_dense._finalize_on_host_bounded) == \
         inspect.getsource(j_dense._finalize_on_host_bounded)
+
+
+@pytest.mark.parametrize("name", ["_refine_on_host", "_sensitivity_on_host",
+                                  "_certify_optimal_basis"])
+def test_reoptimize_host_helper_is_verbatim(name):
+    """The numpy-only helpers of ``reoptimize``, copied as they are."""
+    assert inspect.getsource(getattr(t_dense, name)) == \
+        inspect.getsource(getattr(j_dense, name))
+
+
+def test_public_names_equal_the_jax_package():
+    import simplex_tpu
+    import simplex_tpu_torch
+
+    assert simplex_tpu_torch.__all__ == simplex_tpu.__all__
+    for name in simplex_tpu_torch.__all__:
+        assert hasattr(simplex_tpu_torch, name), name
 
 
 @pytest.mark.parametrize("seed", [2, 7, 9])

@@ -32,6 +32,9 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.web.app\n"
             "import simplex_tpu_torch.services.pdf\n"
             "import simplex_tpu_torch.controllers.cli_io\n"
+            "import simplex_tpu_torch.models.pdhg\n"
+            "import simplex_tpu_torch.models.crossover\n"
+            "import simplex_tpu_torch.runtime.staging\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'simplex_tpu' or m.startswith('simplex_tpu.')]\n"
