@@ -124,7 +124,25 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     clock, and, under ``torch.profiler`` over two chunks, an upload on the
     side stream overlapping a K2 launch; then a mixed stream of 4 x 16384
     (phase 8's and phase 11's batches in turns), each equal to
-    ``solve_arrays``, K2 and K3 both launched.
+    ``solve_arrays``, K2 and K3 both launched;
+20. the row-sharded path (``parallel/sharded.py``), through a one-rank
+    NCCL group that ``parallel.distributed.initialize`` builds: (a) a
+    mixed and a bounded 256 x (30x50) batch bit-equal (status, basis,
+    at_upper, iterations, z) to the 1x1 mesh without a group, and over one
+    chunk of the mixed batch under ``torch.profiler`` the NCCL calls on
+    the host and NCCL's ranges on the device's timeline (one rank runs an all-reduce as a no-op and an
+    all-gather as one device copy, launching no NCCL kernel); (b)
+    certified solves against HiGHS: ``tests/test_sharded.py``'s 8192 x 192
+    LP (at least 150 iterations), its tall bounded LPs (statuses equal to
+    ``BatchedSimplexSolver``'s) and its 16,384-row LP (not escalated);
+    (c) BASELINE config 5's generator cut to ``SHARDED_ROWS`` rows,
+    certified, its wall split into assembly, staging, solve, extract and
+    certify, and its peak device memory; (d)
+    ``utils/sharded_bench.bench_sharded(10240, 64, 3, compare_size=8192)``
+    (K1 launched 256 times by its comparison) and one chunk of 32 pivots
+    under ``torch.profiler``: NCCL calls a pivot, their and the update's
+    share of the device time, the busy share.  The sharded solves launch
+    no kernel of the port.
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
@@ -2319,6 +2337,297 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
     return k2, k3
 
 
+
+# Phase 20: the row-sharded path (parallel/sharded.py) through a one-rank
+# NCCL group.  BASELINE config 5 is one LP of 100,000 rows; its float32 row
+# block (40 GB) and the drift anchor beside it (40 GB more) exceed one
+# card's 80 GB, so its generator runs cut to SHARDED_ROWS rows, the size the
+# JAX package's record also ran on an 8-way mesh.
+SHARDED_ROWS = 32768
+
+
+def config5_lp(m=SHARDED_ROWS, n=20, seed=42):
+    """BASELINE config 5's generator (``tests/test_sharded.py:296-317``):
+    A ~ U(0.05, 1), b = A x0 + U(0.05, 0.5), all ``<=``, maximized."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(0.05, 1.0, size=(1, m, n))
+    x0 = rng.uniform(0.5, 1.5, size=n)
+    b = (A[0] @ x0 + rng.uniform(0.05, 0.5, size=m))[None, :]
+    c = rng.uniform(0.1, 1.0, size=(1, n))
+    return c, A, b, np.full(m, -1)
+
+
+def many_pivot_lp(m=8192, n=192, seed=71):
+    """``tests/test_sharded.py:173``'s LP: about n tight rows, hundreds of
+    pivots."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(0.05, 1.0, size=(1, m, n))
+    x0 = rng.uniform(0.5, 1.5, size=n)
+    slack = np.where(rng.random(m) < n / m * 1.5, 0.0,
+                     rng.uniform(0.5, 5.0, size=m))
+    b = (A[0] @ x0 + slack)[None, :]
+    c = rng.uniform(0.1, 1.0, size=(1, n))
+    return c, A, b, np.full(m, -1)
+
+
+def mechanism_lp(m=16384, n=8, seed=33):
+    """``tests/test_sharded.py:147``'s LP: an interior start, few pivots."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(0.05, 1.0, size=(1, m, n))
+    b = rng.uniform(m * 0.3, m * 0.6, size=(1, m))
+    c = rng.uniform(0.1, 1.0, size=(1, n))
+    return c, A, b, np.full(m, -1)
+
+
+def bound_flip_lp(B=2, m=256, n=12, seed=13):
+    """``tests/test_sharded.py:248``'s tall bounded LPs (bound flips)."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(0.05, 1.0, size=(B, m, n))
+    x0 = rng.uniform(0.5, 1.5, size=(B, n))
+    b = np.einsum("bmn,bn->bm", A, x0) + rng.uniform(0.1, 0.8, (B, m))
+    c = rng.uniform(0.1, 1.0, size=(B, n))
+    ub = np.where(rng.random((B, n)) < 0.7,
+                  x0 * rng.uniform(0.7, 1.3, (B, n)), np.inf)
+    return c, A, b, np.full(m, -1), ub
+
+
+def _sharded_tableau(psh, c, A, b, ops, maximize, ub=None, **kw):
+    """``solve_tableau_sharded`` on the 1x1 mesh of the moment (the
+    identity without a process group, NCCL with one), float32 on the
+    card; ``kw`` goes to it."""
+    _, arrays, bounded = psh.compile_sharded(c, A, b, ops, maximize, ub=ub)
+    mesh = psh.make_mesh()
+    return psh.solve_tableau_sharded(*psh.stage_shards(arrays, mesh, "cuda"),
+                                     mesh=mesh, bounded=bounded, **kw)
+
+
+def _collectives(torch, fn):
+    """``fn()`` under ``torch.profiler`` (host and device): its wall, the
+    device events (us, count, name) as :func:`_profiled` gives them, and
+    the host's collective calls by name (the process group's records,
+    ``nccl:*`` under NCCL) as (count, host ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device, host = [], {}
+    prefix = torch.distributed.get_backend() + ":"
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if us > 0 and not ev.key.startswith("aten::"):
+                device.append((us, ev.count, ev.key))
+        elif ev.key.startswith(prefix):
+            host[ev.key] = (ev.count, ev.cpu_time_total / 1e3)
+    return wall, device, host
+
+
+def _spans(torch, fn, names):
+    """``fn()`` under a host-only ``torch.profiler``: its result, its wall
+    seconds (the profiler recording) and the host seconds of each
+    ``record_function`` span in ``names``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    secs = {ev.key: ev.cpu_time_total / 1e6 for ev in prof.key_averages()
+            if ev.key in names}
+    return out, wall, secs
+
+
+def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
+    """Phase 20: ``parallel/sharded.py`` on the card, through a one-rank
+    NCCL group that ``parallel.distributed.initialize`` builds.  Returns
+    K1's launches in ``bench_sharded``'s comparison."""
+    from simplex_tpu_torch.parallel import distributed as pdist
+    from simplex_tpu_torch.parallel import sharded as psh
+    from simplex_tpu_torch.utils.sharded_bench import (bench_sharded,
+                                                        sharded_problem)
+
+    dist = torch.distributed
+    check(not dist.is_initialized(), "a process group exists before phase 20")
+    t = [time.perf_counter()]
+    c, A, b, ops, maxi = mixed_batch(256)
+    cu, Au, bu, opsu, ubu = mixed_bounded_batch(256)
+    small = {"mixed": (c, A, b, ops, maxi), "bounded":
+             (cu, Au, bu, opsu, False, ubu)}
+    ident = {k: _sharded_tableau(psh, *v) for k, v in small.items()}
+    # (b)'s reference for the tall bounded LPs (K3, before the counts of
+    # the sharded path start).
+    flip = bound_flip_lp()
+    flip_ref = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda")) \
+        .solve_arrays(*flip[:4], maximize=True, ub=flip[4])
+    t_group = time.perf_counter()
+    check(pdist.initialize(f"file://{tmpdir}/nccl_store", 1, 0) is False
+          and dist.is_initialized() and dist.get_backend() == "nccl",
+          "initialize did not build a one-rank NCCL group")
+    probe = torch.ones(1, device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    log(f"[sharded] on {gpu}: the solves without a group and the batched "
+        f"reference {t_group - t[0]!r} s; the one-rank NCCL group and its "
+        f"first all-reduce {time.perf_counter() - t_group!r} s")
+    try:
+        pivot_kernel.LAUNCHES = bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+        sk.LAUNCHES = 0
+        # (a) NCCL against the identity, bit for bit; then one chunk of the
+        # mixed batch under the profiler.
+        for k, v in small.items():
+            ref = ident[k]
+            out = _sharded_tableau(psh, *v)
+            for i, f in ((3, "status"), (1, "basis"), (5, "at_upper")):
+                check(torch.equal(ref[i], out[i]),
+                      f"{k}: {f} of the NCCL solve differs from the identity")
+            check(ref[4] == out[4], f"{k}: iterations {ref[4]} / {out[4]}")
+            check(torch.equal(ref[2][:, -1], out[2][:, -1]),
+                  f"{k}: z of the NCCL solve differs from the identity")
+            log(f"[sharded-nccl] {k} 256 x (30x50) on {gpu}: status, basis, "
+                f"at_upper, iterations ({out[4]}) and z bit-equal to the 1x1 "
+                f"identity mesh; statuses {np.bincount(out[3].cpu().numpy())}")
+        steps = psh._CHUNK
+        wall, device, host = _collectives(
+            torch, lambda: _sharded_tableau(psh, *small["mixed"],
+                                            max_iters=steps))
+        nccl_dev = [(us, n, name) for us, n, name in device
+                    if "nccl" in name.lower()]
+        calls = sum(n for n, _ in host.values())
+        log(f"[sharded-nccl] one chunk ({steps} steps) of the mixed batch "
+            f"under torch.profiler on {gpu}: wall {wall!r} s, device time "
+            f"{sum(us for us, _, _ in device) / 1e3!r} ms; NCCL calls on the "
+            f"host (count, host ms) {host}; device events named nccl "
+            f"(us, count, name): {nccl_dev}")
+        check(calls >= 4 * steps, f"{calls} NCCL calls for {steps} steps")
+        # One rank: NCCL runs an all-reduce in place as a no-op and an
+        # all-gather as one device copy, which the trace shows as the
+        # collective's range on the device's timeline.
+        check(nccl_dev, f"no NCCL work on the device's timeline (device "
+              f"events: {sorted(device, reverse=True)[:8]})")
+
+        # (b) certified solves against HiGHS.
+        t.append(time.perf_counter())
+        c, A, b, ops = many_pivot_lp()
+        t0 = time.perf_counter()
+        res = psh.solve_arrays_sharded(c, A, b, ops, maximize=True,
+                                       max_iters=2048)
+        wall = time.perf_counter() - t0
+        st, z = _highs(c[0], A[0], b[0], ops, True)
+        check(res["status"][0] == 0 == st and res["certified"][0]
+              and _gate(z, res["z"][0]) and res["iters"] >= 150,
+              f"many-pivot LP: status {res['status'][0]} (HiGHS {st}), "
+              f"certified {res['certified'][0]}, z {res['z'][0]!r} vs "
+              f"{z!r}, iterations {res['iters']}")
+        log(f"[sharded] 1 x 8192 x 192 (seed 71) on {gpu}: status 0, "
+            f"certified, z {res['z'][0]!r} (HiGHS {z!r}), {res['iters']} "
+            f"iterations, wall {wall!r} s")
+        c, A, b, ops, ub = flip
+        res = psh.solve_arrays_sharded(c, A, b, ops, maximize=True, ub=ub)
+        check(np.array_equal(res["status"], flip_ref.status)
+              and bool(np.all(res["certified"])),
+              f"tall bounded: {res['status']} vs {flip_ref.status}")
+        for i in range(len(c)):
+            st, z = _highs_bounded(c[i], A[i], b[i], ops, True,
+                                   np.zeros(len(c[i])), ub[i])
+            check(st == res["status"][i] and _gate(z, res["z"][i]),
+                  f"tall bounded {i}: {res['z'][i]!r} vs HiGHS {z!r}")
+        log(f"[sharded] 2 x 256 x 12 bounded (seed 13) on {gpu}: statuses "
+            f"{res['status']} equal to BatchedSimplexSolver's and HiGHS's, "
+            f"certified, z {res['z']} within 1e-6 (1+|z|) of HiGHS, "
+            f"{res['iters']} iterations")
+        c, A, b, ops = mechanism_lp()
+        res = psh.solve_arrays_sharded(c, A, b, ops, maximize=True,
+                                       max_iters=64)
+        st, z = _highs(c[0], A[0], b[0], ops, True)
+        check(res["status"][0] == 0 == st and res["certified"][0]
+              and not res["escalated"][0] and _gate(z, res["z"][0]),
+              f"16384-row LP: status {res['status'][0]}, certified "
+              f"{res['certified'][0]}, escalated {res['escalated'][0]}, "
+              f"z {res['z'][0]!r} vs HiGHS {z!r}")
+        log(f"[sharded] 1 x 16384 x 8 (seed 33) on {gpu}: status 0, "
+            f"certified, not escalated, z {res['z'][0]!r} (HiGHS {z!r}), "
+            f"{res['iters']} iterations")
+
+        # (c) BASELINE config 5's generator cut to SHARDED_ROWS rows.
+        t.append(time.perf_counter())
+        c, A, b, ops = config5_lp()
+        names = ("sharded.assemble", "sharded.stage", "sharded.solve",
+                 "sharded.extract", "sharded.certify")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, secs = _spans(torch, lambda: psh.solve_arrays_sharded(
+            c, A, b, ops, maximize=True, max_iters=512), names)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        st, z = _highs(c[0], A[0], b[0], ops, True)
+        check(res["status"][0] == 0 == st and res["certified"][0]
+              and _gate(z, res["z"][0]),
+              f"config 5 cut: status {res['status'][0]}, certified "
+              f"{res['certified'][0]}, z {res['z'][0]!r} vs HiGHS {z!r}")
+        log(f"[sharded-config5] 1 x {A.shape[1]} x 20 (BASELINE config 5's "
+            f"generator, seed 42, cut from 100,000 rows: their float32 row "
+            f"block and its drift anchor take 80 GB, more than one card "
+            f"holds) on {gpu}: status 0, certified, escalated "
+            f"{res['escalated'][0]}, z {res['z'][0]!r} (HiGHS {z!r}), "
+            f"{res['iters']} iterations; wall {wall!r} s (host profiler on) "
+            f"= " + ", ".join(f"{k.split('.')[1]} {secs.get(k)!r} s"
+                              for k in names)
+            + f"; peak device memory {peak!r} GiB")
+        check(pivot_kernel.LAUNCHES == bk.LAUNCHES == bk.LAUNCHES_K3
+              == sk.LAUNCHES == 0, "the sharded solves launched a kernel of "
+              "the port (they run no kernel of their own)")
+
+        # (d) bench_sharded, then one chunk under the profiler.
+        t.append(time.perf_counter())
+        pivot_kernel.LAUNCHES = 0
+        rec = bench_sharded(10240, 64, 3, compare_size=8192)
+        k1 = pivot_kernel.LAUNCHES
+        check(k1 == 4 * 64, f"bench_sharded's comparison launched K1 {k1}x")
+        d = rec["detail"]
+        log(f"[sharded-bench] bench_sharded(10240, 64, 3, compare_size=8192) "
+            f"on {gpu}: {rec['value']!r} pivots/s, per pivot "
+            f"{d['steady']['per_pivot_ms']!r} ms, effective "
+            f"{d['steady']['effective_GBps']!r} GB/s; with a resync every 64 "
+            f"{d['with_resync_every_64']['per_pivot_ms']!r} ms; vs_baseline "
+            f"{rec['vs_baseline']!r} (K1 launches {k1})")
+        log(f"[sharded-bench] detail {json.dumps(d)}")
+        args = sharded_problem(10240, "cuda")
+        mesh = psh.make_mesh()
+        steps = psh._CHUNK
+        wall, device, host = _collectives(
+            torch, lambda: psh.solve_tableau_sharded(
+                *args, mesh=mesh, max_iters=steps, refactor_every=steps + 1))
+        dev_us = sum(us for us, _, _ in device)
+        nccl_us = sum(us for us, _, name in device if "nccl" in name.lower())
+        upd_us = sum(us for us, _, name in device if "addr" in name)
+        calls = sum(n for n, _ in host.values())
+        host_ms = sum(ms for _, ms in host.values())
+        top = sorted(device, reverse=True)[:6]
+        log(f"[sharded-profile] one chunk of {steps} pivots at 10240 x 20481 "
+            f"on {gpu}: wall {wall!r} s; device time {dev_us / 1e3!r} ms = "
+            f"busy {dev_us / 1e6 / wall!r} of the wall; NCCL calls {calls} "
+            f"({host}: count, host ms) = {calls / steps!r} a pivot, counting "
+            f"the 9 outside the loop, their host time {host_ms!r} ms = "
+            f"{host_ms / 1e3 / wall!r} of the wall; NCCL's ranges on the "
+            f"device {nccl_us / 1e3!r} ms = "
+            f"{nccl_us / max(dev_us, 1e-9)!r} of the device time; the rank-1 "
+            f"update (addr_) {upd_us / 1e3!r} ms = "
+            f"{upd_us / max(dev_us, 1e-9)!r}; top device events {top}")
+        del args
+    finally:
+        dist.destroy_process_group()
+    t.append(time.perf_counter())
+    log(f"[sharded] phase 20 on {gpu}: (a) {t[1] - t[0]!r} s, (b) "
+        f"{t[2] - t[1]!r} s, (c) {t[3] - t[2]!r} s, (d) {t[4] - t[3]!r} s "
+        f"(HiGHS and the generators included)")
+    return k1
+
+
 def main():
     import torch
 
@@ -2454,16 +2763,23 @@ def main():
     k2_pdhg = phase_pdhg_stream(torch, pt, bk, pivot_kernel, gpu)
     t_bstream = time.perf_counter()
     k2_stream, k3_stream = phase_batched_stream(torch, pt, bk, gpu, tmp.name)
-    tmp.cleanup()
-    t_end = time.perf_counter()
-    log(f"[path] launches on this slice's paths: K1 {k1_dual} (phase 16 a) "
+    log(f"[path] launches on phases 16-19's paths: K1 {k1_dual} (phase 16 a) "
         f"and {k1_dual_b} (16 b); K2 {k2_pdhg} (phase 18's recovery) and "
         f"{k2_stream} (phase 19's mixed stream); K3 {k3_stream} (phase 19)")
-    log(f"[done] phases 1-19 in {t_end - t_start!r} s, of which phases "
+
+    # 20. the row-sharded path through a one-rank NCCL group
+    t_sharded = time.perf_counter()
+    k1_sharded = phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmp.name)
+    tmp.cleanup()
+    t_end = time.perf_counter()
+    log(f"[path] launches on phase 20's path: K1 {k1_sharded} "
+        f"(bench_sharded's comparison at 8192^2); K2, K3 and K4 none")
+    log(f"[done] phases 1-20 in {t_end - t_start!r} s, of which phases "
         f"9-11 {t_k4 - t_k3!r} s, 12-13 {t_mps - t_k4!r} s, 14 "
         f"{t_web - t_mps!r} s, 15 {t_new - t_web!r} s, 16 "
         f"{t_pdhg - t_new!r} s, 17 {t_pstream - t_pdhg!r} s, 18 "
-        f"{t_bstream - t_pstream!r} s and 19 {t_end - t_bstream!r} s")
+        f"{t_bstream - t_pstream!r} s, 19 {t_sharded - t_bstream!r} s and "
+        f"20 {t_end - t_sharded!r} s")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",
