@@ -144,6 +144,17 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     share of the device time, the busy share.  The sharded solves launch
     no kernel of the port.
 
+Every solve loop runs each chunk of device steps as one replayed CUDA graph
+(``simplex_tpu_torch/runtime/graphs.py``).  Phases 5, 8, 11, 14, 15, 16,
+17 and 20 also run their loops through the eager chunks (the module's
+private switch) and hold the two bit-equal: the loops' tableaus, bases,
+statuses, iterations and pivots (and ``at_upper``, ``B_inv``, PDHG's x and
+y), with the kernels' launches equal; each logs both times (``[graphs]``)
+and, for phases 5, 14, 17 and 20, both busy shares under
+``torch.profiler`` (``[graphs-busy]``).  After each of those phases the
+graph cache logs its entries, their capture seconds and their bytes on the
+card (``[graphs-cache]``).
+
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
 operations over the float32 peak, whichever is larger; counted from what
@@ -499,7 +510,40 @@ def phase_solve(torch, pt, pivot_kernel, gpu, size=2048):
         f"(HiGHS {z_ref!r}, {highs_s!r} s on the host), pivots={res.nit}, "
         f"wall={wall!r} s, {res.nit / wall!r} pivots/s, "
         f"escalated={res.escalated}, K1 launches={launches}")
+
+    # The chunks as replayed graphs against the eager chunks: the loop's
+    # tableau, basis, status and iterations bit for bit, K1's launches
+    # equal to the timed run's.
+    from simplex_tpu_torch.ops import tableau
+
+    def run():
+        pivot_kernel.LAUNCHES = 0
+        with _Timed(tableau, "solve_tableau", torch, keep=True) as loop:
+            r = pt.solve_lp(lp, cfg)
+        T, basis, status, iters = loop.kept[-1][2]
+        return ({"T": T, "basis": basis, "status": status, "iters": iters,
+                 "x": r.x, "K1": pivot_kernel.LAUNCHES},
+                {"solve_tableau": loop.seconds()})
+
+    times, out = _versus(torch, "phase 5, the 2048x2048 solve_lp", run, gpu)
+    check(out["K1"] == launches, f"K1 launches {out['K1']} in the graph and "
+          f"eager runs, {launches} in the timed run")
+    for kind in ("graph", "eager"):
+        secs = times[kind]["solve_tableau"]
+        log(f"[graphs] phase 5 solve_tableau {kind} on {gpu}: {secs!r} s = "
+            f"{[out['iters'] / t for t in secs]!r} pivots/s")
+    args, kw, _ = loop_args(tableau, lambda: pt.solve_lp(lp, cfg))
+    _busy(torch, "phase 5 solve_tableau", lambda: tableau.solve_tableau(
+        *args, **kw), gpu)
     return launches, res.basis
+
+
+def loop_args(module, fn, name="solve_tableau"):
+    """The arguments and result of the last call of ``module.name`` while
+    ``fn()`` runs."""
+    with _Timed(module, name, keep=True) as rec:
+        fn()
+    return rec.kept[-1]
 
 
 MIXED_OPS = np.array([-1, -1, -1, -1, 1, 1, 0, 0, -1])
@@ -965,7 +1009,39 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
         f"on the optimal ones, escalated={res.n_escalated}, wall {wall!r} s, "
         f"pivots mean {float(res.pivots.mean())!r} max "
         f"{int(res.pivots.max())}, K2 launches {bk.LAUNCHES - before}")
+    _versus(torch, "phase 8, the 1024 x (30x50) mixed batch",
+            _batch_run(torch, bk, solver, (c, A, b, ops),
+                       dict(maximize=maximize)), gpu)
+    c, A, b, ops = bench_batch(B)
+    _, out = _versus(torch, f"phase 8, the {B} x (30x50) batch",
+                     _batch_run(torch, bk, solver, (c, A, b, ops),
+                                dict(maximize=True)), gpu)
+    check(out["K2"] == launches_full and out["K3"] == 0,
+          f"K2 launches {out['K2']} in the graph and eager runs, "
+          f"{launches_full} in the timed run")
     return launches_full
+
+
+def _batch_run(torch, bk, solver, args, kw):
+    """A ``run()`` for :func:`_versus`: ``solver.solve_arrays(*args,
+    **kw)``, with its solve loop's outputs, the certified results, the K2
+    and K3 launches, and the loop's and the device solve's seconds."""
+    from simplex_tpu_torch.ops import batched as tops
+
+    def run():
+        bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+        with _Timed(tops, "_solve_loop", torch, keep=True) as loop:
+            r = solver.solve_arrays(*args, **kw)
+        T, basis, at_up, status, iters, pivots = loop.kept[-1][2]
+        out = {"T": T, "basis": basis, "status": status, "iters": iters,
+               "pivots": pivots, "x": r.x, "z": r.z,
+               "certified": r.certified, "K2": bk.LAUNCHES,
+               "K3": bk.LAUNCHES_K3}
+        if at_up is not None:
+            out["at_upper"] = at_up
+        return out, {"_solve_loop": loop.seconds(),
+                     "solve_time": r.solve_time}
+    return run
 
 
 def bounded_ub(seed, B, n):
@@ -1397,6 +1473,16 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
         f"the gate on the optimal ones, escalated={res.n_escalated}, wall "
         f"{wall!r} s, pivots mean {float(res.pivots.mean())!r} max "
         f"{int(res.pivots.max())}, K3 launches {bk.LAUNCHES_K3}")
+    _versus(torch, "phase 11, the 1024 x (30x50) mixed bounded batch",
+            _batch_run(torch, bk, solver, (c, A, b, ops),
+                       dict(maximize=False, ub=ub)), gpu)
+    cB, AB, bB, opsB, ubB = bench_bounded_batch(B)
+    _, out = _versus(torch, f"phase 11, the bounded {B} x (30x50) batch",
+                     _batch_run(torch, bk, solver, (cB, AB, bB, opsB),
+                                dict(maximize=True, ub=ubB)), gpu)
+    check(out["K3"] == k3_launches and out["K2"] == 0,
+          f"K3 launches {out['K3']} in the graph and eager runs, "
+          f"{k3_launches} in the timed run")
 
     # The sweep: shapes and bound kinds mixed; the 224 LPs with boxes keep
     # finite upper bounds (K3), the 32 taller ones without boxes form a
@@ -1624,13 +1710,18 @@ def phase_mps(torch, cli, pivot_kernel, tmpdir, gpu):
 REVISED_M, REVISED_N = 500, 1500
 
 
+class _Stop(Exception):
+    """Ends a solve once its profiled window is over."""
+
+
 def _profile_revised(torch, solve, chunks=6):
     """One more ``solve()``, its first ``chunks`` chunks under
     ``torch.profiler`` (the whole solve's ~700k ops would take the profiler
-    many minutes to process; a chunk repeats one refactor and 64 steps).
-    Returns the window's wall seconds, its pivots (one a step, an upper
-    bound), the device time of every kernel and copy, and the device time
-    launched under ``aten::linalg_solve_ex`` (the refactors), in us."""
+    many minutes to process; a chunk repeats one refactor and 64 steps),
+    and the solve stopped there.  Returns the window's wall seconds, its
+    pivots (one a step, an upper bound), the device time of every kernel
+    and copy, and the device time launched under
+    ``aten::linalg_solve_ex`` (the refactors), in us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1651,6 +1742,7 @@ def _profile_revised(torch, solve, chunks=6):
         calls[0] += 1
         if calls[0] == chunks + 1:
             stop()
+            raise _Stop
         return refactor(*args, **kw)
 
     revised._refactor = counted
@@ -1659,6 +1751,8 @@ def _profile_revised(torch, solve, chunks=6):
         window["t0"] = time.perf_counter()
         solve()
         stop()
+    except _Stop:
+        pass
     finally:
         revised._refactor = refactor
     dev_us, solve_us, top = 0.0, 0.0, []
@@ -1721,13 +1815,38 @@ def phase_revised(torch, pt, gpu, m=REVISED_M, n=REVISED_N):
         f"pivot, escalated={res.escalated}, peak device memory "
         f"{peak / 2**20!r} MiB")
 
-    wall_p, steps, dev_us, solve_us, top = _profile_revised(
-        torch, lambda: solver.solve(lp))
+    def run():
+        with _Timed(revised, "_run_phase_revised", torch, keep=True) as ph:
+            t = time.perf_counter()
+            r = solver.solve(lp)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+        B_inv, x_B, basis, at_up, it, st, obj = ph.kept[-1][2]
+        return ({"B_inv": B_inv, "x_B": x_B, "basis": basis,
+                 "at_upper": at_up, "iters": it, "status": st, "obj": obj,
+                 "x": r.x, "nit": r.nit},
+                {"solve": t, "pivots_per_s": r.nit / t})
+
+    _versus(torch, f"phase 14 (b), the revised {m}x{n} solve", run, gpu,
+            order="GE")
+    from simplex_tpu_torch.runtime import graphs
+
+    for kind in ("eager", "graph"):
+        graphs._EAGER = kind == "eager"
+        try:
+            wall_p, steps, dev_us, solve_us, top = _profile_revised(
+                torch, lambda: solver.solve(lp))
+        finally:
+            graphs._EAGER = False
+        if kind == "eager" and dev_us:
+            log(f"[graphs-busy] phase 14 (b) revised, the first {steps} "
+                f"steps, eager on {gpu}: wall {wall_p!r} s under the "
+                f"profiler, busy {dev_us / 1e6 / wall_p!r}")
     if dev_us == 0:
         log("[revised-profile] the profiler saw no device time")
         return
     per_step = (dev_us - solve_us) / 1e3 / steps
-    log(f"[revised-profile] on {gpu}: the first {steps} steps and their "
+    log(f"[revised-profile] graphs, on {gpu}: the first {steps} steps and their "
         f"refactors, wall {wall_p!r} s under the profiler; device time "
         f"{dev_us / 1e3!r} ms = {dev_us / 1e6 / wall_p!r} of that wall; "
         f"linalg.solve_ex (the refactors) {solve_us / 1e3!r} ms = "
@@ -1770,11 +1889,19 @@ def phase_web(torch, cli, pivot_kernel, profiling, gpu):
     before = json.loads(client.get("/metrics").text)["solves"]
     n_rec = len(profiling.DEFAULT_METRICS.records)
 
+    from simplex_tpu_torch.runtime import graphs
+
     pivot_kernel.LAUNCHES = 0
     r = client.post("/new", data=ANCHOR_FORM)
     check(r.status_code == 200 and "Vista previa" in r.text,
           "POST /new gave no preview")
+    # The first request pays for its graphs' captures.
+    graphs.clear()
+    captures = graphs.CAPTURES
+    t0 = time.perf_counter()
     r = client.post("/solve")
+    first_s = time.perf_counter() - t0
+    captures = graphs.CAPTURES - captures
     launches = pivot_kernel.LAUNCHES
     check(r.status_code == 200 and "Solucion Factible" in r.text
           and "9833.3333" in r.text, "POST /solve: no Z = 9833.3333")
@@ -1787,6 +1914,27 @@ def phase_web(torch, cli, pivot_kernel, profiling, gpu):
     rec = recs[-1]
     check((rec.engine, rec.status, rec.n_vars, rec.n_cons)
           == ("dense", 0, 2, 3), f"/metrics record {rec.to_json()}")
+
+    # Repeats (the session's problem is consumed by /solve, so each is
+    # posted anew): through the cached graphs, eagerly, and in turns again;
+    # each the same page.
+    repeat = {"graph": [], "eager": []}
+    for kind in ("graph", "eager", "graph", "eager"):
+        check(client.post("/new", data=ANCHOR_FORM).status_code == 200,
+              "POST /new before a repeated /solve")
+        graphs._EAGER = kind == "eager"
+        try:
+            t0 = time.perf_counter()
+            r2 = client.post("/solve")
+            repeat[kind].append(time.perf_counter() - t0)
+        finally:
+            graphs._EAGER = False
+        check(r2.status_code == 200 and "9833.3333" in r2.text,
+              f"repeated /solve ({kind}): no Z = 9833.3333")
+    log(f"[graphs] phase 15 web /solve of the max anchor on {gpu}: the "
+        f"first request {first_s!r} s ({captures} captures), repeats "
+        f"through the graphs {repeat['graph']!r} s, eager "
+        f"{repeat['eager']!r} s")
 
     r = client.get("/exportar-pdf")
     check(r.status_code == 200 and r.data.startswith(b"%PDF")
@@ -1820,11 +1968,12 @@ class _Timed:
     """Replaces ``module.name`` while in use by a wrapper that records each
     call's (start, end) on the host clock, with a device sync at both ends
     when ``torch`` is given (never from a worker thread), and restores it
-    on exit."""
+    on exit.  With ``keep``, each call's ``(args, kwargs, result)`` is kept
+    in ``kept``."""
 
-    def __init__(self, module, name, torch=None):
+    def __init__(self, module, name, torch=None, keep=False):
         self.module, self.name, self.torch = module, name, torch
-        self.calls = []
+        self.calls, self.keep, self.kept = [], keep, []
 
     def __enter__(self):
         fn = self.fn = getattr(self.module, self.name)
@@ -1834,7 +1983,10 @@ class _Timed:
                 self.torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                return fn(*args, **kw)
+                out = fn(*args, **kw)
+                if self.keep:
+                    self.kept.append((args, kw, out))
+                return out
             finally:
                 if self.torch is not None:
                     self.torch.cuda.synchronize()
@@ -1848,6 +2000,87 @@ class _Timed:
 
     def seconds(self):
         return sum(t1 - t0 for t0, t1 in self.calls)
+
+
+def _numpy(x):
+    """A tensor, an array or a number as a numpy array on the host."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _same_bits(a, b):
+    a, b = _numpy(a), _numpy(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def _versus(torch, label, run, gpu, order="GEGE"):
+    """``run()`` through the solve loops' CUDA graphs (``G``) and through
+    their eager chunks (``E``: the private switch of ``runtime/graphs.py``),
+    in the order given, each between two device syncs.  ``run()`` returns
+    ``(outputs, seconds)``: a dict of tensors, arrays and numbers that every
+    run must reproduce bit for bit, and a dict of the seconds it measured.
+    Returns ``({"graph": {name: [s, ...]}, "eager": {...}}, outputs)``."""
+    from simplex_tpu_torch.runtime import graphs
+
+    times = {"graph": {}, "eager": {}}
+    ref = None
+    for mode in order:
+        kind = "eager" if mode == "E" else "graph"
+        graphs._EAGER = mode == "E"
+        try:
+            torch.cuda.synchronize()
+            out, secs = run()
+            torch.cuda.synchronize()
+        finally:
+            graphs._EAGER = False
+        for k, v in secs.items():
+            times[kind].setdefault(k, []).append(v)
+        if ref is None:
+            ref = out
+            continue
+        check(sorted(out) == sorted(ref), f"{label}: outputs {sorted(out)}")
+        for k in ref:
+            check(_same_bits(ref[k], out[k]),
+                  f"{label}: {k} of a {kind} run differs from the first "
+                  f"run ({'eager' if order[0] == 'E' else 'graph'})")
+    log(f"[graphs] {label} on {gpu}: runs {order} (G graphs, E eager) "
+        f"bit-equal in {sorted(ref)}; seconds, graphs {times['graph']}, "
+        f"eager {times['eager']}")
+    return times, ref
+
+
+def _busy(torch, label, fn, gpu):
+    """``fn()`` under ``torch.profiler``, once through the graphs and once
+    eagerly: the device busy share of each wall (under the profiler)."""
+    from simplex_tpu_torch.runtime import graphs
+
+    shares = {}
+    for kind in ("graph", "eager"):
+        graphs._EAGER = kind == "eager"
+        try:
+            wall, events = _profiled(torch, fn)
+        finally:
+            graphs._EAGER = False
+        dev_us = sum(us for us, _, _ in events)
+        shares[kind] = (wall, dev_us / 1e6 / wall)
+    log(f"[graphs-busy] {label} on {gpu} under torch.profiler: graphs wall "
+        f"{shares['graph'][0]!r} s, busy {shares['graph'][1]!r}; eager wall "
+        f"{shares['eager'][0]!r} s, busy {shares['eager'][1]!r}")
+    return shares
+
+
+def _graph_stats(label):
+    """Log the graph cache: each entry's loop, graphs, capture seconds and
+    bytes on the card, and the chunks run so far."""
+    from simplex_tpu_torch.runtime import graphs
+
+    stats = graphs.stats()
+    log(f"[graphs-cache] after {label}: {len(stats)} entries, "
+        f"{graphs.cache_bytes()} bytes on the card; captures "
+        f"{graphs.CAPTURES}, replays {graphs.REPLAYS}, eager chunks "
+        f"{graphs.EAGER_CHUNKS}; entries {json.dumps(stats)}")
 
 
 def phase_reoptimize(torch, pt, pivot_kernel, gpu, basis, size=2048):
@@ -1904,6 +2137,20 @@ def phase_reoptimize(torch, pt, pivot_kernel, gpu, basis, size=2048):
         f"it (f64 certificate, refinement, sensitivity) {t3 - t2!r} s; K1 "
         f"launches {launches}, host reads {reads}; solve_tableau_dual ran "
         f"once, the cold solve_lp not at all")
+
+    def run():
+        pivot_kernel.LAUNCHES = 0
+        with _Timed(tableau, "solve_tableau_dual", torch, keep=True) as lp_:
+            r = pt.reoptimize(lp2, basis, cfg)
+        T, basis_o, status, iters = lp_.kept[-1][2]
+        return ({"T": T, "basis": basis_o, "status": status, "iters": iters,
+                 "x": r.x, "K1": pivot_kernel.LAUNCHES},
+                {"device_loop": lp_.seconds()})
+
+    _, out = _versus(torch, "phase 16 (a), the 2048x2048 float64 "
+                     "reoptimize", run, gpu, order="EGEG")
+    check(out["K1"] == launches, f"K1 launches {out['K1']} in the graph and "
+          f"eager runs, {launches} in the first")
     return launches
 
 
@@ -1968,6 +2215,19 @@ def phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu, m=384, n=256):
             f"(parent: {parent.nit}), {int(res.at_upper.sum())} columns at "
             f"upper, wall {wall!r} s, the loop {loop.seconds()!r} s, K1 "
             f"launches {launches}; no cold fallback")
+
+        def run():
+            with _Timed(tableau, "solve_tableau_dual_bounded", torch,
+                        keep=True) as lp_:
+                r = pt.reoptimize(lp2, parent.basis, cfg,
+                                  at_upper=parent.at_upper)
+            T, basis_o, at_up, status, iters = lp_.kept[-1][2]
+            return ({"T": T, "basis": basis_o, "at_upper": at_up,
+                     "status": status, "iters": iters, "x": r.x},
+                    {"device_loop": lp_.seconds()})
+
+        _versus(torch, f"phase 16 (b), the bounded {name} reoptimize", run,
+                gpu, order="EG")
     return total
 
 
@@ -2072,12 +2332,48 @@ def phase_pdhg(torch, pt, gpu, B=65536, m=20, n=30, tol=1e-4,
         f"({int(done.sum())}), host reads {reads} (limit "
         f"{iters / 40 + 2!r}); {checked} converged of 256 sampled within "
         f"2e-3 of HiGHS and their f64 residuals within tol*scale")
-    wall, dev_us, mv_us = _profile_ops(
-        torch, lambda: pdhg._pdhg_solve(*args, max_iters=401, tol=tol),
-        "aten::bmm")
+    from simplex_tpu_torch.runtime import graphs
+
+    graphs._EAGER = True
+    try:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        eager_out = pdhg._pdhg_solve(*args, max_iters=max_iters, tol=tol)
+        e1.record()
+        torch.cuda.synchronize()
+        eager_s = e0.elapsed_time(e1) / 1e3
+    finally:
+        graphs._EAGER = False
+    # Graph against eager: iterations and verdicts equal; x, y and the
+    # residuals bit for bit (cuBLAS's batched matvecs included).
+    check(eager_out[6] == iters, f"PDHG iterations: eager {eager_out[6]}, "
+          f"graphs {iters}")
+    check(_same_bits(eager_out[5], out[5]), "PDHG converged flags differ "
+          "between graphs and eager")
+    diff = [int((_numpy(g) != _numpy(e)).sum())
+            for g, e in zip(out[:5], eager_out[:5])]
+    check(not any(diff), f"PDHG x, y, primal, dual, gap: {diff} entries "
+          f"differ between graphs and eager")
+    log(f"[graphs] phase 17 PDHG {B} x ({m}x{n}) device solve on {gpu}: "
+        f"graphs {times!r} s, eager {eager_s!r} s (CUDA events); iterations, "
+        f"converged flags, x, y and residuals bit-equal")
+    for kind in ("eager", "graph"):
+        graphs._EAGER = kind == "eager"
+        try:
+            wall, dev_us, mv_us = _profile_ops(
+                torch, lambda: pdhg._pdhg_solve(*args, max_iters=401,
+                                                tol=tol), "aten::bmm")
+        finally:
+            graphs._EAGER = False
+        if kind == "eager":
+            log(f"[graphs-busy] phase 17 PDHG, the first 401 iterations, "
+                f"eager on {gpu}: wall {wall!r} s under the profiler, busy "
+                f"{dev_us / 1e6 / max(wall, 1e-9)!r}")
     if dev_us:
         log(f"[pdhg-profile] the first 401 iterations under torch.profiler "
-            f"on {gpu}: wall {wall!r} s, device time {dev_us / 1e3!r} ms = "
+            f"through the graphs on {gpu}: wall {wall!r} s, device time {dev_us / 1e3!r} ms = "
             f"{dev_us / 1e6 / wall!r} of the wall; the matvecs (aten::bmm) "
             f"{mv_us / 1e3!r} ms = {mv_us / dev_us!r} of the device time, "
             f"elementwise and reductions the rest; "
@@ -2263,7 +2559,8 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
     bk.LAUNCHES = 0
     with _Timed(tmb, "_run_batch", torch) as runs, \
             _Timed(tmb, "certify_uniform_result") as certs, \
-            _Timed(staging, "stage") as stages:
+            _Timed(staging, "stage") as stages, \
+            _Timed(staging.Staged, "upload") as uploads:
         t0 = time.perf_counter()
         outs = list(pt.solve_arrays_stream(timed_chunks(), cfg))
         wall = time.perf_counter() - t0
@@ -2276,7 +2573,10 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
     check(all(overlaps), f"certify k / solve k+1 overlaps: {overlaps}")
     solve_s = sum(r.solve_time for r in outs)
     cert_s = certs.seconds()
-    serial = gen_s[0] + stages.seconds() + runs.seconds() + cert_s
+    # The uploads of batches 1.. are issued inside _run_batch (after its
+    # first chunk), so runs already hold them.
+    serial = gen_s[0] + stages.seconds() + uploads.calls[0][1] \
+        - uploads.calls[0][0] + runs.seconds() + cert_s
     c, A, b, ops = next(stream_chunks(1, chunk, m, n, 300))
     ref = pt.BatchedSimplexSolver(cfg).solve_arrays(c, A, b, ops,
                                                     maximize=True)
@@ -2288,8 +2588,11 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
         f"escalated {sum(r.n_escalated for r in outs)}; wall {wall!r} s = "
         f"{n_chunks * chunk / wall!r} LPs/s (generation included); "
         f"sum of device solves {solve_s!r} s, sum of certify {cert_s!r} s, "
-        f"of generation {gen_s[0]!r} s, of staging (pinned copy, uploads "
-        f"issued) {stages.seconds()!r} s; wall / the serial sum of the four "
+        f"of generation {gen_s[0]!r} s, of staging (pinned buffers and "
+        f"device tensors allocated) {stages.seconds()!r} s, of the uploads "
+        f"issued (pinned copy, copies enqueued; batch k+1's inside batch "
+        f"k's _run_batch, after its first chunk) {uploads.seconds()!r} s; "
+        f"wall / the serial sum of the four "
         f"(the solves as _run_batch with syncs, {runs.seconds()!r} s) "
         f"{wall / serial!r}; certify "
         f"of chunk k overlapped the solve of chunk k+1 on the host clock "
@@ -2452,6 +2755,8 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
     from simplex_tpu_torch.utils.sharded_bench import (bench_sharded,
                                                         sharded_problem)
 
+    from simplex_tpu_torch.runtime import graphs
+
     dist = torch.distributed
     check(not dist.is_initialized(), "a process group exists before phase 20")
     t = [time.perf_counter()]
@@ -2492,10 +2797,22 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
             log(f"[sharded-nccl] {k} 256 x (30x50) on {gpu}: status, basis, "
                 f"at_upper, iterations ({out[4]}) and z bit-equal to the 1x1 "
                 f"identity mesh; statuses {np.bincount(out[3].cpu().numpy())}")
+            # Through NCCL: the replayed graphs (their all-reduces and
+            # all-gathers captured) against the eager chunks.
+            _versus(torch, f"phase 20 (a), the {k} 256 x (30x50) batch "
+                    f"through NCCL", lambda v=v: (dict(zip(
+                        ("T", "basis", "obj", "status", "iters", "at_upper"),
+                        _sharded_tableau(psh, *v))), {}), gpu, order="EG")
         steps = psh._CHUNK
-        wall, device, host = _collectives(
-            torch, lambda: _sharded_tableau(psh, *small["mixed"],
-                                            max_iters=steps))
+        # The NCCL calls a pivot, counted on the host: the eager chunk
+        # (a replayed graph makes no host call).
+        graphs._EAGER = True
+        try:
+            wall, device, host = _collectives(
+                torch, lambda: _sharded_tableau(psh, *small["mixed"],
+                                                max_iters=steps))
+        finally:
+            graphs._EAGER = False
         nccl_dev = [(us, n, name) for us, n, name in device
                     if "nccl" in name.lower()]
         calls = sum(n for n, _ in host.values())
@@ -2561,6 +2878,7 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
                  "sharded.extract", "sharded.certify")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        cached = graphs.cache_bytes() / 2 ** 30
         res, wall, secs = _spans(torch, lambda: psh.solve_arrays_sharded(
             c, A, b, ops, maximize=True, max_iters=512), names)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2577,7 +2895,9 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
             f"{res['iters']} iterations; wall {wall!r} s (host profiler on) "
             f"= " + ", ".join(f"{k.split('.')[1]} {secs.get(k)!r} s"
                               for k in names)
-            + f"; peak device memory {peak!r} GiB")
+            + f"; peak device memory {peak!r} GiB, of which the graph "
+            f"cache held {cached!r} GiB from the earlier solves (this "
+            f"solve's own entry is private: its buffers are its tensors)")
         check(pivot_kernel.LAUNCHES == bk.LAUNCHES == bk.LAUNCHES_K3
               == sk.LAUNCHES == 0, "the sharded solves launched a kernel of "
               "the port (they run no kernel of their own)")
@@ -2596,12 +2916,39 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
             f"{d['with_resync_every_64']['per_pivot_ms']!r} ms; vs_baseline "
             f"{rec['vs_baseline']!r} (K1 launches {k1})")
         log(f"[sharded-bench] detail {json.dumps(d)}")
+        graphs._EAGER = True
+        try:
+            pivot_kernel.LAUNCHES = 0
+            rec_e = bench_sharded(10240, 64, 3, compare_size=8192)
+            check(pivot_kernel.LAUNCHES == 4 * 64, "bench_sharded's "
+                  f"comparison launched K1 {pivot_kernel.LAUNCHES}x")
+        finally:
+            graphs._EAGER = False
+        de = rec_e["detail"]
+        log(f"[graphs] phase 20 (d) bench_sharded at 10240 on {gpu}: per "
+            f"pivot through the graphs {d['steady']['per_pivot_ms']!r} ms, "
+            f"eager {de['steady']['per_pivot_ms']!r} ms; with a resync "
+            f"every 64: graphs {d['with_resync_every_64']['per_pivot_ms']!r} "
+            f"ms, eager {de['with_resync_every_64']['per_pivot_ms']!r} ms")
         args = sharded_problem(10240, "cuda")
         mesh = psh.make_mesh()
         steps = psh._CHUNK
-        wall, device, host = _collectives(
-            torch, lambda: psh.solve_tableau_sharded(
-                *args, mesh=mesh, max_iters=steps, refactor_every=steps + 1))
+
+        def chunk():
+            return psh.solve_tableau_sharded(
+                *args, mesh=mesh, max_iters=steps, refactor_every=steps + 1)
+
+        chunk()                 # its graph captured, outside the window
+        wall_g, device_g, _ = _collectives(torch, chunk)
+        dev_g = sum(us for us, _, _ in device_g)
+        log(f"[graphs-busy] phase 20 (d) one chunk of {steps} pivots at "
+            f"10240 x 20481 through the graphs on {gpu}: wall {wall_g!r} s, "
+            f"device time {dev_g / 1e3!r} ms = busy {dev_g / 1e6 / wall_g!r}")
+        graphs._EAGER = True
+        try:
+            wall, device, host = _collectives(torch, chunk)
+        finally:
+            graphs._EAGER = False
         dev_us = sum(us for us, _, _ in device)
         nccl_us = sum(us for us, _, name in device if "nccl" in name.lower())
         upd_us = sum(us for us, _, name in device if "addr" in name)
@@ -2609,7 +2956,7 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
         host_ms = sum(ms for _, ms in host.values())
         top = sorted(device, reverse=True)[:6]
         log(f"[sharded-profile] one chunk of {steps} pivots at 10240 x 20481 "
-            f"on {gpu}: wall {wall!r} s; device time {dev_us / 1e3!r} ms = "
+            f"eager on {gpu}: wall {wall!r} s; device time {dev_us / 1e3!r} ms = "
             f"busy {dev_us / 1e6 / wall!r} of the wall; NCCL calls {calls} "
             f"({host}: count, host ms) = {calls / steps!r} a pivot, counting "
             f"the 9 outside the loop, their host time {host_ms!r} ms = "
@@ -2620,6 +2967,9 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
             f"{upd_us / max(dev_us, 1e-9)!r}; top device events {top}")
         del args
     finally:
+        # The graphs that captured the group's collectives go first.
+        torch.cuda.synchronize()
+        graphs.clear()
         dist.destroy_process_group()
     t.append(time.perf_counter())
     log(f"[sharded] phase 20 on {gpu}: (a) {t[1] - t[0]!r} s, (b) "
@@ -2684,6 +3034,7 @@ def main():
 
     # 5. the main path at full size
     launches, basis_2048 = phase_solve(torch, pt, pivot_kernel, gpu)
+    _graph_stats("phase 5")
 
     # 6. K2 against its twin, 7. timed
     k2_err = phase_k2(torch, bk, compile_batch_uniform)
@@ -2692,6 +3043,7 @@ def main():
 
     # 8. the batched path at full width
     k2_launches = phase_batched(torch, pt, bk, gpu)
+    _graph_stats("phase 8")
 
     # 9. K3 against its twin, 10. timed
     t_k3 = time.perf_counter()
@@ -2701,6 +3053,7 @@ def main():
 
     # 11. the bounded path at full width
     k3_launches = phase_bounded(torch, pt, bk, gpu)
+    _graph_stats("phase 11")
 
     # 12. K4 against its twin, 13. timed, the pivot-rate path, and every
     # kernel's share restated against K4's measured in-place ceiling
@@ -2748,8 +3101,10 @@ def main():
     t_mps = time.perf_counter()
     phase_mps(torch, cli, pivot_kernel, tmp.name, gpu)
     phase_revised(torch, pt, gpu)
+    _graph_stats("phase 14")
     t_web = time.perf_counter()
     phase_web(torch, cli, pivot_kernel, profiling, gpu)
+    _graph_stats("phase 15")
 
     # 16. the dual reoptimizer (K1), 17. PDHG, 18. the PDHG stream with
     # crossover (K2 in the batched recovery), 19. the batched stream (K2,
@@ -2757,12 +3112,16 @@ def main():
     t_new = time.perf_counter()
     k1_dual = phase_reoptimize(torch, pt, pivot_kernel, gpu, basis_2048)
     k1_dual_b = phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu)
+    _graph_stats("phase 16")
     t_pdhg = time.perf_counter()
     phase_pdhg(torch, pt, gpu)
+    _graph_stats("phase 17")
     t_pstream = time.perf_counter()
     k2_pdhg = phase_pdhg_stream(torch, pt, bk, pivot_kernel, gpu)
+    _graph_stats("phase 18")
     t_bstream = time.perf_counter()
     k2_stream, k3_stream = phase_batched_stream(torch, pt, bk, gpu, tmp.name)
+    _graph_stats("phase 19")
     log(f"[path] launches on phases 16-19's paths: K1 {k1_dual} (phase 16 a) "
         f"and {k1_dual_b} (16 b); K2 {k2_pdhg} (phase 18's recovery) and "
         f"{k2_stream} (phase 19's mixed stream); K3 {k3_stream} (phase 19)")
@@ -2770,6 +3129,7 @@ def main():
     # 20. the row-sharded path through a one-rank NCCL group
     t_sharded = time.perf_counter()
     k1_sharded = phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmp.name)
+    _graph_stats("phase 20")
     tmp.cleanup()
     t_end = time.perf_counter()
     log(f"[path] launches on phase 20's path: K1 {k1_sharded} "

@@ -401,11 +401,13 @@ def _assemble_on_device(tensors, maximize, with_art: bool, row_pad: int,
 
 
 def _run_batch(cb: CompiledBatch, config: SolverConfig,
-               max_iters: Optional[int] = None) -> BatchResult:
+               max_iters: Optional[int] = None,
+               _on_first_chunk=None) -> BatchResult:
     """Solve a compiled batch on ``config.device``: the classic solver, or
     the bounded one when ``cb.ub_ext`` is set.  ``cb`` may hold numpy
     arrays (either package's) or tensors; the tableau's own dtype is the
-    working dtype."""
+    working dtype.  ``_on_first_chunk`` (private): called once, right after
+    the solve loop's first chunk has been enqueued."""
     t0 = time.perf_counter()
     dtype = np.dtype(str(cb.T0.dtype).replace("torch.", ""))
     _, torch_dtype = resolve_dtype(dtype.name)
@@ -434,15 +436,16 @@ def _run_batch(cb: CompiledBatch, config: SolverConfig,
         phase2_only=phase2_only,
     )
     at_upper = None
-    if "ub" in st:
-        T, basis, at_up, status, iters, pivots = \
-            batched_ops.solve_tableau_batch_bounded(**st, **kw)
+    ub = st.pop("ub", None)
+    # The solvers' common loop (solve_tableau_batch / _bounded), with the
+    # private callback.
+    T, basis, at_up, status, iters, pivots = batched_ops._solve_loop(
+        **st, ub=ub, feas_tol=1e-5, **kw, _on_first_chunk=_on_first_chunk)
+    if ub is not None:
         x, z_min = batched_ops.extract_solution_batch_bounded(
-            T, basis, at_up, st["ub"], cb.n_vars)
+            T, basis, at_up, ub, cb.n_vars)
         at_upper = at_up.cpu().numpy()
     else:
-        T, basis, status, iters, pivots = batched_ops.solve_tableau_batch(
-            **st, **kw)
         x, z_min = batched_ops.extract_solution_batch(T, basis, cb.n_vars)
     x = np.maximum(x.cpu().numpy().astype(np.float64), 0.0)
     fun = z_min.cpu().numpy().astype(np.float64)
@@ -822,10 +825,12 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
     here, because the solve loop reads its state once a chunk and so blocks
     the host:
 
-    * batch k+1's raw ``(c, A, b)`` are copied into pinned buffers and
-      their uploads issued on a side stream (``runtime/staging.py``) before
-      batch k's loop starts; the compute stream waits on the upload's event
-      before it assembles batch k+1 (``_assemble_on_device``);
+    * batch k+1's pinned buffers and device tensors are allocated before
+      batch k's loop starts, and its raw ``(c, A, b)`` are copied into the
+      buffers and uploaded on a side stream (``runtime/staging.py``) right
+      after batch k's first chunk has been enqueued, so that the copies run
+      beside that batch's steps; the compute stream waits on the upload's
+      event before it assembles batch k+1 (``_assemble_on_device``);
     * batch k is certified on one worker thread, which touches numpy
       results only, while batch k+1 solves; batch k is yielded once its
       certificate is done.
@@ -842,7 +847,8 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
 
     def stage(batch):
         arrays, maxi, with_art = _batch_inputs(*batch[:4], maximize, dtype)
-        return staging.stage(arrays, dev, side), maxi, with_art, batch
+        return (staging.stage(arrays, dev, side, defer=True), maxi,
+                with_art, batch)
 
     it = iter(batches)
     try:
@@ -857,12 +863,14 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
             cb = _assemble_on_device(staged.tensors(), maxi, with_art,
                                      row_pad=8, col_pad=128,
                                      align_total=True, ub=ub)
-            # Stage the NEXT batch before this one's loop starts.
+            # The NEXT batch's buffers now; its uploads once this batch's
+            # first chunk is enqueued.
             try:
                 nxt = stage(next(it))
             except StopIteration:
                 nxt = None
-            res = _run_batch(cb, config)
+            res = _run_batch(cb, config, _on_first_chunk=(
+                None if nxt is None else nxt[0].upload))
             del cb, staged
             if not config.certify:
                 yield res

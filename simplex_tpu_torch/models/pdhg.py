@@ -14,8 +14,9 @@ Differences from the JAX module, all deliberate:
 
 * The ``lax.while_loop`` becomes a host loop over chunks that end on a
   check iteration: the device runs ``check_every`` iterations (41 in the
-  first chunk) without a host read, and the host reads ``all(done)`` once a
-  chunk (counted in ``STATE_READS``).  A check runs where the reference
+  first chunk) without a host read, one CUDA graph on the card
+  (``runtime/graphs.py``), and the host reads ``all(done)`` once a chunk
+  (counted in ``STATE_READS``).  A check runs where the reference
   runs it, after the update of iteration ``k`` when ``k > 0`` and
   ``k % check_every == 0``, and the loop stops at ``k == max_iters`` even
   inside a chunk, so the iteration count is the reference's.
@@ -39,7 +40,7 @@ import torch
 
 from ..config import resolve_dtype, torch_device
 from ..core.problem import OP_EQ, OP_GE
-from ..runtime import staging
+from ..runtime import graphs, staging
 
 # Host reads of the loop state since the counter was last reset to 0.
 STATE_READS = 0
@@ -112,6 +113,97 @@ def _ruiz_equilibrate(A, iters: int = 8):
     return As, d_r, d_c
 
 
+def _residuals(cs, bounded: bool, x_s, y_s):
+    """KKT errors in the ORIGINAL space (x = d_c*x_s, y = d_r*y_s)."""
+    A, b, c = cs["A"], cs["b"], cs["c"]
+    x = x_s * cs["d_c"]
+    y = y_s * cs["d_r"]
+    r_p = _mv(A, x) - b
+    viol = torch.where(cs["is_eq"], torch.abs(r_p),
+                       torch.clamp_min(r_p, 0.0))
+    primal = torch.amax(viol, dim=1)
+    g = c + _mtv(A, y)
+    if bounded:
+        # Dual feasibility per bound status; the gap with the finite-ub
+        # multiplier terms.
+        ub, ub_fin, ub_or_0 = cs["ub"], cs["ub_fin"], cs["ub_or_0"]
+        xs = 1e-6 * (1.0 + ub_or_0)
+        at_lo = x <= xs
+        at_hi = ub_fin & (x >= ub - xs)
+        dviol = torch.where(at_lo, torch.clamp_min(-g, 0.0),
+                            torch.where(at_hi, torch.clamp_min(g, 0.0),
+                                        torch.abs(g)))
+        dual = torch.amax(dviol, dim=1)
+        lam_u = torch.where(ub_fin, torch.clamp_min(-g, 0.0), 0.0)
+        gap = torch.abs((c * x).sum(1) + (b * y).sum(1)
+                        + (ub_or_0 * lam_u).sum(1))
+    else:
+        dual = torch.amax(torch.clamp_min(-g, 0.0), dim=1)
+        gap = torch.abs((c * x).sum(1) + (b * y).sum(1))
+    return primal, dual, gap
+
+
+def _kkt(cs, bounded: bool, x_s, y_s):
+    primal, dual, gap = _residuals(cs, bounded, x_s, y_s)
+    return torch.maximum(torch.maximum(primal, dual), 0.1 * gap)
+
+
+def _pdhg_chunk(st, cs, static, n_iters: int, check_last: bool):
+    """``n_iters`` iterations of :func:`_pdhg_solve`'s loop, and the
+    restart / convergence check after the last one when ``check_last``:
+    the chunk body that ``runtime/graphs.py`` runs eagerly or replays as
+    one CUDA graph.  Returns the new state."""
+    tol, bounded = static
+    dt = cs["A_s"].dtype
+    A_s, c_s, b_s = cs["A_s"], cs["c_s"], cs["b_s"]
+    tau, sigma, is_eq = cs["tau"], cs["sigma"], cs["is_eq"]
+    x, y, xsum, ysum = st["x"], st["y"], st["xsum"], st["ysum"]
+    navg, err_last, done = st["navg"], st["err_last"], st["done"]
+    for _ in range(n_iters):
+        grad_x = c_s + _mtv(A_s, y)
+        if bounded:
+            x_new = torch.minimum(torch.clamp_min(x - tau * grad_x, 0.0),
+                                  cs["hi_s"])
+        else:
+            x_new = torch.clamp_min(x - tau * grad_x, 0.0)
+        x_bar = 2.0 * x_new - x
+        y_new = y + sigma * (_mv(A_s, x_bar) - b_s)
+        y_new = torch.where(is_eq, y_new, torch.clamp_min(y_new, 0.0))
+        # Freeze converged instances.
+        live = (~done)[:, None]
+        x = torch.where(live, x_new, x)
+        y = torch.where(live, y_new, y)
+        xsum = xsum + torch.where(live, x, 0.0)
+        ysum = ysum + torch.where(live, y, 0.0)
+        navg = navg + (~done).to(dt)
+    if check_last:
+        nac = torch.clamp_min(navg, 1.0)[:, None]
+        x_avg = xsum / nac
+        y_avg = ysum / nac
+        err_cur = _kkt(cs, bounded, x, y)
+        err_avg = _kkt(cs, bounded, x_avg, y_avg)
+        avg_better = err_avg < err_cur
+        err_best = torch.minimum(err_avg, err_cur)
+        # Sufficient decay since the last restart, or stalled: restart
+        # from the best candidate and reset the average.
+        do = (err_best <= 0.5 * err_last) | (err_best >= err_last)
+        x_cand = torch.where(avg_better[:, None], x_avg, x)
+        y_cand = torch.where(avg_better[:, None], y_avg, y)
+        x = torch.where(do[:, None], x_cand, x)
+        y = torch.where(do[:, None], y_cand, y)
+        err_last = torch.where(do, err_best, err_last)
+        xsum = torch.where(do[:, None], 0.0, xsum)
+        ysum = torch.where(do[:, None], 0.0, ysum)
+        navg = torch.where(do, 0.0, navg)
+        primal, dual, gap = _residuals(cs, bounded, x, y)
+        scale = cs["scale"]
+        newly = (primal <= tol * scale) & (dual <= tol * scale) & \
+            (gap <= 10.0 * tol * scale)
+        done = done | newly
+    return {"x": x, "y": y, "xsum": xsum, "ysum": ysum, "navg": navg,
+            "err_last": err_last, "done": done}
+
+
 def _pdhg_solve(A, b, c, is_eq, ub=None, max_iters: int = 10000,
                 tol: float = 1e-4, check_every: int = 40,
                 bounded: bool = False):
@@ -119,8 +211,9 @@ def _pdhg_solve(A, b, c, is_eq, ub=None, max_iters: int = 10000,
 
     A: (B, m, n); b: (B, m); c: (B, n); is_eq: (B, m) bool, all on one
     device; ub: (B, n) with +inf where unbounded (``bounded=True``
-    activates the box projection).  Returns ``(x, y, primal, dual, gap,
-    done, iters)`` as tensors, ``iters`` a host int.
+    activates the box projection).  Each chunk is :func:`_pdhg_chunk`,
+    one CUDA graph on the card.  Returns ``(x, y, primal, dual, gap, done,
+    iters)`` as tensors, ``iters`` a host int.
     """
     global STATE_READS
     B, m, n = A.shape
@@ -150,106 +243,37 @@ def _pdhg_solve(A, b, c, is_eq, ub=None, max_iters: int = 10000,
     mild = (w0 >= 0.1) & (w0 <= 10.0)
     omega0 = torch.where(mild, 1.0, torch.clamp(torch.sqrt(w0), 1e-4, 1e4))
 
-    scale = 1.0 + torch.maximum(torch.amax(torch.abs(b), dim=1),
-                                torch.amax(torch.abs(c), dim=1))
-
-    def residuals(x_s, y_s):
-        """KKT errors in the ORIGINAL space (x = d_c*x_s, y = d_r*y_s)."""
-        x = x_s * d_c
-        y = y_s * d_r
-        r_p = _mv(A, x) - b
-        viol = torch.where(is_eq, torch.abs(r_p), torch.clamp_min(r_p, 0.0))
-        primal = torch.amax(viol, dim=1)
-        g = c + _mtv(A, y)
-        if bounded:
-            # Dual feasibility per bound status; the gap with the
-            # finite-ub multiplier terms.
-            xs = 1e-6 * (1.0 + ub_or_0)
-            at_lo = x <= xs
-            at_hi = ub_fin & (x >= ub - xs)
-            dviol = torch.where(at_lo, torch.clamp_min(-g, 0.0),
-                                torch.where(at_hi, torch.clamp_min(g, 0.0),
-                                            torch.abs(g)))
-            dual = torch.amax(dviol, dim=1)
-            lam_u = torch.where(ub_fin, torch.clamp_min(-g, 0.0), 0.0)
-            gap = torch.abs((c * x).sum(1) + (b * y).sum(1)
-                            + (ub_or_0 * lam_u).sum(1))
-        else:
-            dual = torch.amax(torch.clamp_min(-g, 0.0), dim=1)
-            gap = torch.abs((c * x).sum(1) + (b * y).sum(1))
-        return primal, dual, gap
-
-    def kkt(x_s, y_s):
-        primal, dual, gap = residuals(x_s, y_s)
-        return torch.maximum(torch.maximum(primal, dual), 0.1 * gap)
-
-    tau = (base / omega0)[:, None]
-    sigma = (base * omega0)[:, None]
-
+    cs = {"A": A, "b": b, "c": c, "is_eq": is_eq, "d_r": d_r, "d_c": d_c,
+          "A_s": A_s, "b_s": b_s, "c_s": c_s, "ub": ub, "ub_fin": ub_fin,
+          "ub_or_0": ub_or_0, "hi_s": hi_s,
+          "tau": (base / omega0)[:, None], "sigma": (base * omega0)[:, None],
+          "scale": 1.0 + torch.maximum(torch.amax(torch.abs(b), dim=1),
+                                       torch.amax(torch.abs(c), dim=1))}
     x = torch.zeros((B, n), dtype=dt, device=dev)
     y = torch.zeros((B, m), dtype=dt, device=dev)
-    xsum = torch.zeros_like(x)
-    ysum = torch.zeros_like(y)
-    navg = torch.zeros((B,), dtype=dt, device=dev)
-    err_last = kkt(x, y)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-
-    def check():
-        nonlocal x, y, xsum, ysum, navg, err_last, done
-        nac = torch.clamp_min(navg, 1.0)[:, None]
-        x_avg = xsum / nac
-        y_avg = ysum / nac
-        err_cur = kkt(x, y)
-        err_avg = kkt(x_avg, y_avg)
-        avg_better = err_avg < err_cur
-        err_best = torch.minimum(err_avg, err_cur)
-        # Sufficient decay since the last restart, or stalled: restart
-        # from the best candidate and reset the average.
-        do = (err_best <= 0.5 * err_last) | (err_best >= err_last)
-        x_cand = torch.where(avg_better[:, None], x_avg, x)
-        y_cand = torch.where(avg_better[:, None], y_avg, y)
-        x = torch.where(do[:, None], x_cand, x)
-        y = torch.where(do[:, None], y_cand, y)
-        err_last = torch.where(do, err_best, err_last)
-        xsum = torch.where(do[:, None], 0.0, xsum)
-        ysum = torch.where(do[:, None], 0.0, ysum)
-        navg = torch.where(do, 0.0, navg)
-        primal, dual, gap = residuals(x, y)
-        newly = (primal <= tol * scale) & (dual <= tol * scale) & \
-            (gap <= 10.0 * tol * scale)
-        done = done | newly
+    state = {"x": x, "y": y, "xsum": torch.zeros_like(x),
+             "ysum": torch.zeros_like(y),
+             "navg": torch.zeros((B,), dtype=dt, device=dev),
+             "err_last": _kkt(cs, bounded, x, y),
+             "done": torch.zeros((B,), dtype=torch.bool, device=dev)}
 
     k = 0
-    while k < max_iters:
-        # One chunk: iterations k .. the next check (k' > 0, k' % check_every
-        # == 0), or up to the cap.
-        k_check = (k // check_every + 1) * check_every
-        for k in range(k, min(k_check + 1, max_iters)):
-            grad_x = c_s + _mtv(A_s, y)
-            if bounded:
-                x_new = torch.minimum(torch.clamp_min(x - tau * grad_x, 0.0),
-                                      hi_s)
-            else:
-                x_new = torch.clamp_min(x - tau * grad_x, 0.0)
-            x_bar = 2.0 * x_new - x
-            y_new = y + sigma * (_mv(A_s, x_bar) - b_s)
-            y_new = torch.where(is_eq, y_new, torch.clamp_min(y_new, 0.0))
-            # Freeze converged instances.
-            live = (~done)[:, None]
-            x = torch.where(live, x_new, x)
-            y = torch.where(live, y_new, y)
-            xsum = xsum + torch.where(live, x, 0.0)
-            ysum = ysum + torch.where(live, y, 0.0)
-            navg = navg + (~done).to(dt)
-            if k == k_check:
-                check()
-        k += 1
-        if k > k_check:
-            STATE_READS += 1
-            if bool(done.all()):
-                break
-    primal, dual, gap = residuals(x, y)
-    return x * d_c, y * d_r, primal, dual, gap, done, k
+    with graphs.Loop("pdhg.solve", state, cs,
+                     (float(tol), bool(bounded))) as lp:
+        while k < max_iters:
+            # One chunk: iterations k .. the next check (k' > 0,
+            # k' % check_every == 0), or up to the cap.
+            k_check = (k // check_every + 1) * check_every
+            k_end = min(k_check + 1, max_iters)
+            lp.run(_pdhg_chunk, k_end - k, k_end - 1 == k_check)
+            k = k_end
+            if k > k_check:
+                STATE_READS += 1
+                if bool(lp.state["done"].all()):
+                    break
+    x, y = state["x"], state["y"]
+    primal, dual, gap = _residuals(cs, bounded, x, y)
+    return x * d_c, y * d_r, primal, dual, gap, state["done"], k
 
 
 def _canonical(c, A, b, ops, maximize):

@@ -20,7 +20,8 @@ engine has no hand-written kernel because its JAX counterpart has none.
 Differences from the JAX module, all deliberate:
 
 * The ``lax.while_loop`` becomes a host loop over chunks of device steps
-  (the shape of ``ops/tableau.py::_run_phase``).  The state stays in
+  (the shape of ``ops/tableau.py::_run_phase``), each one CUDA graph on
+  the card (``runtime/graphs.py``).  The state stays in
   device tensors, one step is branch-free (the reference's three-way
   switch stop / flip / pivot becomes updates masked by 0-d flags, and a
   step whose loop condition no longer holds changes nothing), and the host
@@ -63,6 +64,7 @@ from ..core.problem import (
     normalize_bounds,
     split_free_variables,
 )
+from ..runtime import graphs
 from .dense import (
     SimplexResult,
     _finalize_on_host,
@@ -99,51 +101,30 @@ def _refactor(A_std, b, basis, at_upper=None, ub=None):
     return B_inv, x_B
 
 
-def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
-                       B_inv, x_B, basis, at_upper, ub, iters0,
-                       in_phase2: bool, tol: float = 1e-6,
-                       max_iters: int = 8192, bland_after: int = 2048,
-                       refactor_every: int = 64, devex: bool = False):
-    """One phase of BOUNDED-VARIABLE revised simplex (see the JAX function
-    for the rules).  The inputs are left intact.
+def _objective(cs, basis, x_B, at_upper):
+    """The phase objective with the at-upper nonbasics (for the stall gate
+    only: the verdicts come from the f64 finalize)."""
+    return (cs["cost_n"].index_select(0, basis) @ x_B
+            + torch.sum(torch.where(at_upper, cs["cost_up"], 0.0)))
 
-    Returns ``(B_inv, x_B, basis, at_upper, iters, status, objective)``:
-    tensors on the device for the first four, host numbers for the rest.
-    """
-    dev, dt = A_std.device, A_std.dtype
+
+def _revised_chunk(st, cs, static, n_steps: int):
+    """``n_steps`` steps of :func:`_run_phase_revised`'s loop, the chunk
+    body that ``runtime/graphs.py`` runs eagerly or replays as one CUDA
+    graph.  Returns the new state; ``B_inv``, ``basis`` and ``at_upper``
+    are updated in place."""
+    tol, max_iters, bland_after, stall_limit, devex, in_phase2 = static
     i64 = torch.int64
     inf = math.inf
-    # f32 numeric-stall cutoff: exit after a full Bland budget of
-    # consecutive non-improving pivots (the solver then escalates).
-    stall_limit = bland_after + 1024
-    eps = torch.finfo(dt).eps
-
-    def full(value, dtype):
-        return torch.full((), value, dtype=dtype, device=dev)
-
-    ub_safe = torch.where(torch.isfinite(ub), ub, 0.0)
-    cost_n = cost[:-1]
-    cost_up = cost_n * ub_safe          # an at-upper nonbasic's objective
-    k_run, k_opt, k_unb = (full(v, i64) for v in
-                           (RUNNING, STATUS_OPTIMAL, STATUS_UNBOUNDED))
-    art_bonus = torch.where(art_mask_ext, _ART_BONUS, 0).to(i64)
-
-    B_inv, x_B = B_inv.clone(), x_B.clone()
-    basis, at_upper = basis.to(i64).clone(), at_upper.clone()
-    w = torch.ones((A_std.shape[1],), dtype=dt, device=dev)
-    iters = full(int(iters0), i64)
-    status = k_run
-    best_obj = full(inf, dt)
-    no_imp = full(0, i64)
-
-    def objective():
-        # Includes the at-upper nonbasics (for the stall gate only: the
-        # verdicts come from the f64 finalize).
-        return (cost_n.index_select(0, basis) @ x_B
-                + torch.sum(torch.where(at_upper, cost_up, 0.0)))
-
-    def step():
-        nonlocal B_inv, x_B, w, iters, status, best_obj, no_imp
+    A_std, cost_n, col_mask = cs["A_std"], cs["cost_n"], cs["col_mask"]
+    ub, ub_safe, art_mask_ext = cs["ub"], cs["ub_safe"], cs["art_mask_ext"]
+    art_bonus = cs["art_bonus"]
+    k_run, k_opt, k_unb = cs["k_run"], cs["k_opt"], cs["k_unb"]
+    eps = torch.finfo(A_std.dtype).eps
+    B_inv, basis, at_upper = st["B_inv"], st["basis"], st["at_upper"]
+    x_B, w, iters, status = st["x_B"], st["w"], st["iters"], st["status"]
+    best_obj, no_imp = st["best_obj"], st["no_imp"]
+    for _ in range(n_steps):
         active = ((status == RUNNING) & (iters < max_iters)
                   & (no_imp < stall_limit))
 
@@ -168,7 +149,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
         # FTRAN; sigma = +1 entering from lower, -1 from upper.
         d = B_inv @ A_std.index_select(1, ss)[:, 0]
         at_s = at_upper.index_select(0, ss)[0]
-        dd = (1.0 - 2.0 * at_s.to(dt)) * d
+        dd = (1.0 - 2.0 * at_s.to(A_std.dtype)) * d
         ub_B = ub.index_select(0, basis)
 
         pos = dd > tol
@@ -243,7 +224,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
         at_upper.index_copy_(0, ss, torch.where(
             flip, ~at_s, at_s & ~pivot).reshape(1))
 
-        obj = objective()
+        obj = _objective(cs, basis, x_B, at_upper)
         improved = obj < best_obj - tol * (1.0 + torch.abs(best_obj))
         best_obj = torch.where(active, torch.minimum(best_obj, obj),
                                best_obj)
@@ -252,24 +233,72 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
                              no_imp)
         iters = iters + moved
         status = torch.where(active, new_status, status)
+    return {"x_B": x_B, "w": w, "iters": iters, "status": status,
+            "best_obj": best_obj, "no_imp": no_imp}
+
+
+def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
+                       B_inv, x_B, basis, at_upper, ub, iters0,
+                       in_phase2: bool, tol: float = 1e-6,
+                       max_iters: int = 8192, bland_after: int = 2048,
+                       refactor_every: int = 64, devex: bool = False):
+    """One phase of BOUNDED-VARIABLE revised simplex (see the JAX function
+    for the rules).  The inputs are left intact.  Each chunk of steps is
+    :func:`_revised_chunk`, one CUDA graph on the card.
+
+    Returns ``(B_inv, x_B, basis, at_upper, iters, status, objective)``:
+    tensors on the device for the first four, host numbers for the rest.
+    """
+    dev, dt = A_std.device, A_std.dtype
+    i64 = torch.int64
+    # f32 numeric-stall cutoff: exit after a full Bland budget of
+    # consecutive non-improving pivots (the solver then escalates).
+    stall_limit = bland_after + 1024
+
+    def full(value, dtype):
+        return torch.full((), value, dtype=dtype, device=dev)
+
+    ub_safe = torch.where(torch.isfinite(ub), ub, 0.0)
+    cost_n = cost[:-1]
+    consts = {"A_std": A_std, "cost_n": cost_n, "col_mask": col_mask,
+              "ub": ub, "ub_safe": ub_safe, "art_mask_ext": art_mask_ext,
+              # an at-upper nonbasic's objective
+              "cost_up": cost_n * ub_safe,
+              "art_bonus": torch.where(art_mask_ext, _ART_BONUS, 0).to(i64),
+              "k_run": full(RUNNING, i64), "k_opt": full(STATUS_OPTIMAL, i64),
+              "k_unb": full(STATUS_UNBOUNDED, i64)}
+    state = {"B_inv": B_inv.clone(), "x_B": x_B.clone(),
+             "basis": basis.to(i64).clone(), "at_upper": at_upper.clone(),
+             "w": torch.ones((A_std.shape[1],), dtype=dt, device=dev),
+             "iters": full(int(iters0), i64), "status": full(RUNNING, i64),
+             "best_obj": full(math.inf, dt), "no_imp": full(0, i64)}
+    static = (float(tol), int(max_iters), int(bland_after), stall_limit,
+              bool(devex), bool(in_phase2))
 
     global STATE_READS
     n_steps = refactor_every - 1        # since starts at 1
-    while True:
-        for _ in range(n_steps):
-            step()
-        st, it, ni, obj = torch.stack([
-            status.to(torch.float64), iters.to(torch.float64),
-            no_imp.to(torch.float64), objective().to(torch.float64)]).tolist()
-        STATE_READS += 1
-        st, it, ni = int(st), int(it), int(ni)
-        if not (st == RUNNING and it < max_iters and ni < stall_limit):
-            break
-        B_inv, x_B = _refactor(A_std, b, basis, at_upper, ub)
-        n_steps = refactor_every
-    if st == RUNNING:
-        st = STATUS_ITERATION_LIMIT
-    return B_inv, x_B, basis, at_upper, it, st, obj
+    with graphs.Loop("revised.phase", state, consts, static) as lp:
+        st = lp.state
+        while True:
+            lp.run(_revised_chunk, n_steps)
+            st_, it, ni, obj = torch.stack([
+                st["status"].to(torch.float64), st["iters"].to(torch.float64),
+                st["no_imp"].to(torch.float64),
+                _objective(lp.consts, st["basis"], st["x_B"],
+                           st["at_upper"]).to(torch.float64)]).tolist()
+            STATE_READS += 1
+            st_, it, ni = int(st_), int(it), int(ni)
+            if not (st_ == RUNNING and it < max_iters and ni < stall_limit):
+                break
+            B_inv_new, x_B_new = _refactor(A_std, b, st["basis"],
+                                           st["at_upper"], ub)
+            st["B_inv"].copy_(B_inv_new)
+            st["x_B"].copy_(x_B_new)
+            n_steps = refactor_every
+    if st_ == RUNNING:
+        st_ = STATUS_ITERATION_LIMIT
+    return (state["B_inv"], state["x_B"], state["basis"], state["at_upper"],
+            it, st_, obj)
 
 
 class RevisedSimplexSolver:

@@ -13,9 +13,10 @@ reference's ``backend="xla"``.
 
 Differences from the JAX module, all deliberate:
 
-* The ``lax.while_loop`` becomes a host loop over chunks of device steps,
-  with one host read of the loop state per chunk (``_read``), never one per
-  pivot.  A step taken after every instance has finished is a masked no-op
+* The ``lax.while_loop`` becomes a host loop over chunks of device steps
+  (:func:`_batch_chunk`, one replayed CUDA graph on the card:
+  ``runtime/graphs.py``), with one host read of the loop state per chunk
+  (``_read``), never one per pivot.  A step taken after every instance has finished is a masked no-op
   that leaves the tableaus bit-identical, and ``iters`` counts only steps
   taken while some instance was running (a device counter), so ``iters``
   and the per-instance ``pivots`` equal the reference's when the
@@ -49,6 +50,7 @@ from ..core.problem import (
     STATUS_OPTIMAL,
     STATUS_UNBOUNDED,
 )
+from ..runtime import graphs
 from .batched_kernel import (
     fma_rn,
     fused_pivot_step_,
@@ -144,7 +146,7 @@ def _select_pivot_b(T, basis, col_mask, tol, use_bland, weights=None):
     # Harris two-pass ratio test; Bland mode keeps the smallest-basis-index
     # rule.  The numerator rounds once, as the reference's compiled loop
     # contracts it (see ops/batched_kernel.py).
-    tol_t = torch.tensor(tol, dtype=T.dtype, device=T.device)
+    tol_t = torch.full((), tol, dtype=T.dtype, device=T.device)
     theta_relax = torch.where(
         positive, fma_rn(1.0 + rhs.abs(), tol_t, rhs_c) / safe_col, math.inf)
     theta_max = torch.amin(theta_relax, dim=-1)
@@ -410,7 +412,7 @@ def _bounded_step_b(T, basis, at_upper, col_mask, in_p1, live, use_bland, w,
     flip = ~optimal & ~unbounded & (ub_s <= min_row)
     theta_safe = torch.where(torch.isfinite(theta), theta, 0.0)
 
-    tol_t = torch.tensor(tol, dtype=dt, device=dev)
+    tol_t = torch.full((), tol, dtype=dt, device=dev)
     t_lo_rel = torch.where(pos, fma_rn(1.0 + xB.abs(), tol_t, xB_c) / pos_dd,
                            inf)
     t_hi_rel = torch.where(neg, fma_rn(1.0 + span.abs(), tol_t, span_c)
@@ -420,8 +422,8 @@ def _bounded_step_b(T, basis, at_upper, col_mask, in_p1, live, use_bland, w,
     hval = dd.abs()
     if with_art:
         harris_cand = harris_cand | art_exit
-        hval = hval + torch.where(art_exit, torch.tensor(1e30, dtype=dt,
-                                                         device=dev), 0.0)
+        hval = hval + torch.where(art_exit, torch.full((), 1e30, dtype=dt,
+                                                       device=dev), 0.0)
     r_harris = torch.argmax(torch.where(harris_cand, hval, -inf), dim=-1)
     eps = torch.finfo(dt).eps
     near = cand & (t_row <= (min_row + 64.0 * eps
@@ -580,12 +582,84 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
                        feas_tol, refactor_every, backend, devex, phase2_only)
 
 
+def _batch_chunk(st, cs, static, n_steps: int):
+    """``n_steps`` steps of :func:`_solve_loop`, the chunk body that
+    ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.
+    Returns the new state (K2 and K3 update theirs in place)."""
+    kind, bounded, phase2_only, tol, bland_after, feas_tol, devex = static
+    i32 = torch.int32
+    T, basis, status, iters = st["T"], st["basis"], st["status"], st["iters"]
+    pivots, best_obj, no_imp = st["pivots"], st["best_obj"], st["no_imp"]
+    w, to_p2, phase = st["w"], st["to_p2"], st["phase"]
+    cm1f, cm2f = cs["cm1f"], cs["cm2f"]
+    col_mask_p1, col_mask_p2 = cs["col_mask_p1"], cs["col_mask_p2"]
+    art_mask_ext = cs["art_mask_ext"]
+    bst = None
+    if bounded:
+        bst = {k: st[k] for k in ("at_upper", "ub_B", "is_art_row")}
+    for _ in range(n_steps):
+        running = status == RUNNING
+        iters = iters + running.any()
+        use_bland = no_imp >= bland_after
+        col_mask = None
+        if kind == "unfused":
+            col_mask = col_mask_p2 if phase2_only else torch.where(
+                (phase == 1)[:, None], col_mask_p1, col_mask_p2)
+        if bounded:
+            T, basis, optimal, unbounded, active = _step_bounded(
+                kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
+                use_bland, w, cs["ub"], art_mask_ext, tol, devex,
+                not phase2_only)
+        else:
+            T, basis, optimal, unbounded, active = _step(
+                kind, T, basis, cm1f, cm2f, col_mask, phase, status,
+                use_bland, w, tol, devex)
+        want_stop = (optimal | unbounded) & running
+        if phase2_only:
+            status = torch.where(
+                want_stop & optimal, STATUS_OPTIMAL,
+                torch.where(want_stop & unbounded, STATUS_UNBOUNDED,
+                            status))
+        else:
+            # Phase-1 completion: infeasible is decided here; a feasible
+            # instance idles until the chunk's end flips it.
+            in_p1 = phase == 1
+            p1_done = want_stop & in_p1
+            infeasible = p1_done & (-T[:, -1, -1]
+                                    > feas_tol * cs["b_scale"])
+            to_p2 = p1_done & ~infeasible
+            finish_p2 = want_stop & ~in_p1
+            status = torch.where(
+                infeasible, STATUS_INFEASIBLE,
+                torch.where(finish_p2 & optimal, STATUS_OPTIMAL,
+                            torch.where(finish_p2 & unbounded,
+                                        STATUS_UNBOUNDED, status)))
+        pivots = pivots + active.to(i32)
+        # Objective progress for the stall-gated Bland switch (the
+        # threshold rounds once, as the reference's loop contracts it).
+        obj_b = -T[:, -1, -1]
+        improved = obj_b < fma_rn(1.0 + best_obj.abs(), cs["neg_tol"],
+                                  best_obj)
+        best_obj = torch.minimum(best_obj, obj_b)
+        no_imp = torch.where(improved, 0, no_imp + active.to(i32))
+    new = {"T": T, "basis": basis, "status": status, "iters": iters,
+           "pivots": pivots, "best_obj": best_obj, "no_imp": no_imp,
+           "to_p2": to_p2}
+    if bounded:
+        new.update(bst)
+    return new
+
+
 def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
                 need_p1, ub, tol, max_iters, bland_after, feas_tol,
-                refactor_every, backend, devex, phase2_only):
+                refactor_every, backend, devex, phase2_only,
+                _on_first_chunk=None):
     """The chunked loop of both solvers; ``ub`` None is the classic one.
-    Returns ``(T, basis, at_upper, status, iters, pivots)``, ``at_upper``
-    None for the classic solver."""
+    Each chunk is :func:`_batch_chunk`, one CUDA graph on the card.
+    ``_on_first_chunk`` (private) is called once, right after the first
+    chunk has been enqueued: the batched stream issues the next batch's
+    uploads there.  Returns ``(T, basis, at_upper, status, iters,
+    pivots)``, ``at_upper`` None for the classic solver."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown batched backend {backend!r}; expected "
                          f"one of {sorted(_BACKENDS)}")
@@ -594,146 +668,131 @@ def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
     dev, dt = T0.device, T0.dtype
     Bsz, M, N = T0.shape
     i32 = torch.int32
-    T = T0.clone()
-    basis = basis0.to(i32).clone()
     T0_rows = T0[:, :-1, :]
     zero_lane = torch.zeros((Bsz, 1), dtype=torch.bool, device=dev)
-    cm1f = torch.cat([col_mask_p1, zero_lane], dim=1)
-    cm2f = torch.cat([col_mask_p2, zero_lane], dim=1)
-    status = torch.full((Bsz,), RUNNING, dtype=i32, device=dev)
-    iters = torch.zeros((), dtype=torch.int64, device=dev)
-    pivots = torch.zeros((Bsz,), dtype=i32, device=dev)
-    best_obj = torch.full((Bsz,), math.inf, dtype=dt, device=dev)
-    no_imp = torch.zeros((Bsz,), dtype=i32, device=dev)
-    w = torch.ones((Bsz, N), dtype=dt, device=dev)   # RHS lane padded to 1
-    phase = torch.where(need_p1, 1, 2).to(i32)
-    b_scale = 1.0 + torch.amax(T0[:, :-1, -1].abs(), dim=1)
-    neg_tol = torch.tensor(-tol, dtype=dt, device=dev)
     art_mask_ext = torch.cat([col_mask_p1 & ~col_mask_p2, zero_lane], dim=1)
-    bst = None
+    state = {
+        "T": T0.clone(),
+        "basis": basis0.to(i32).clone(),
+        "status": torch.full((Bsz,), RUNNING, dtype=i32, device=dev),
+        "iters": torch.zeros((), dtype=torch.int64, device=dev),
+        "pivots": torch.zeros((Bsz,), dtype=i32, device=dev),
+        "best_obj": torch.full((Bsz,), math.inf, dtype=dt, device=dev),
+        "no_imp": torch.zeros((Bsz,), dtype=i32, device=dev),
+        "w": torch.ones((Bsz, N), dtype=dt, device=dev),  # RHS lane 1
+        "to_p2": torch.zeros((Bsz,), dtype=torch.bool, device=dev),
+        "phase": torch.where(need_p1, 1, 2).to(i32),
+    }
+    consts = {
+        "cm1f": torch.cat([col_mask_p1, zero_lane], dim=1),
+        "cm2f": torch.cat([col_mask_p2, zero_lane], dim=1),
+        "col_mask_p1": col_mask_p1, "col_mask_p2": col_mask_p2,
+        "b_scale": 1.0 + torch.amax(T0[:, :-1, -1].abs(), dim=1),
+        "neg_tol": torch.full((), -tol, dtype=dt, device=dev),
+        "art_mask_ext": art_mask_ext,
+    }
     if bounded:
         # The carried bound state, gathered by the initial basis.
         ub = ub.to(dt).contiguous()
-        bl = basis.long()
-        bst = {"at_upper": torch.zeros((Bsz, N - 1), dtype=torch.bool,
-                                       device=dev),
-               "ub_B": ub.gather(1, bl).contiguous(),
-               "is_art_row": art_mask_ext.gather(1, bl).contiguous()}
+        bl = state["basis"].long()
+        state.update(
+            at_upper=torch.zeros((Bsz, N - 1), dtype=torch.bool, device=dev),
+            ub_B=ub.gather(1, bl).contiguous(),
+            is_art_row=art_mask_ext.gather(1, bl).contiguous())
+        consts["ub"] = ub
+    static = (kind, bounded, bool(phase2_only), float(tol), int(bland_after),
+              float(feas_tol), bool(devex))
 
-    def obj_rows():
-        """Each instance's raw cost row for its phase."""
-        return torch.where((phase == 1)[:, None], obj_row_p1, obj_row_p2)
+    with graphs.Loop("batched.solve", state, consts, static) as lp:
+        st = lp.state
 
-    def refactor(raw_obj):
-        active = status == RUNNING
-        if bounded:
-            return _refactor_bounded_b(T, basis, bst["at_upper"], ub,
-                                       T0_rows, raw_obj, active)
-        return _refactor_b(T, basis, T0_rows, raw_obj, active)
+        def obj_rows():
+            """Each instance's raw cost row for its phase."""
+            return torch.where((st["phase"] == 1)[:, None], obj_row_p1,
+                               obj_row_p2)
 
-    iters_h, any_run = 0, 1
-    # The reference refactors at the start of iteration k for
-    # k = refactor_every - 1, 2*refactor_every - 1, ...
-    next_ref = refactor_every - 1
-    to_p2 = torch.zeros((Bsz,), dtype=torch.bool, device=dev)
-    while any_run and iters_h < max_iters:
-        if not phase2_only and iters_h == next_ref:
-            T = refactor(obj_rows())
-            next_ref += refactor_every
-        n_steps = refactor_every if phase2_only else min(
-            next_ref - iters_h, _FLIP_CHUNK)
-        for _ in range(min(n_steps, max_iters - iters_h)):
-            running = status == RUNNING
-            iters = iters + running.any()
-            use_bland = no_imp >= bland_after
-            col_mask = None
-            if kind == "unfused":
-                col_mask = col_mask_p2 if phase2_only else torch.where(
-                    (phase == 1)[:, None], col_mask_p1, col_mask_p2)
+        def refactor(raw_obj):
+            active = st["status"] == RUNNING
             if bounded:
-                T, basis, optimal, unbounded, active = _step_bounded(
-                    kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
-                    use_bland, w, ub, art_mask_ext, tol, devex,
-                    not phase2_only)
-            else:
-                T, basis, optimal, unbounded, active = _step(
-                    kind, T, basis, cm1f, cm2f, col_mask, phase, status,
-                    use_bland, w, tol, devex)
-            want_stop = (optimal | unbounded) & running
-            if phase2_only:
-                status = torch.where(
-                    want_stop & optimal, STATUS_OPTIMAL,
-                    torch.where(want_stop & unbounded, STATUS_UNBOUNDED,
-                                status))
-            else:
-                # Phase-1 completion: infeasible is decided here; a
-                # feasible instance idles until the chunk's end flips it.
-                in_p1 = phase == 1
-                p1_done = want_stop & in_p1
-                infeasible = p1_done & (-T[:, -1, -1] > feas_tol * b_scale)
-                to_p2 = p1_done & ~infeasible
-                finish_p2 = want_stop & ~in_p1
-                status = torch.where(
-                    infeasible, STATUS_INFEASIBLE,
-                    torch.where(finish_p2 & optimal, STATUS_OPTIMAL,
-                                torch.where(finish_p2 & unbounded,
-                                            STATUS_UNBOUNDED, status)))
-            pivots = pivots + active.to(i32)
-            # Objective progress for the stall-gated Bland switch (the
-            # threshold rounds once, as the reference's loop contracts it).
-            obj_b = -T[:, -1, -1]
-            improved = obj_b < fma_rn(1.0 + best_obj.abs(), neg_tol, best_obj)
-            best_obj = torch.minimum(best_obj, obj_b)
-            no_imp = torch.where(improved, 0, no_imp + active.to(i32))
+                return _refactor_bounded_b(st["T"], st["basis"],
+                                           st["at_upper"], ub, T0_rows,
+                                           raw_obj, active)
+            return _refactor_b(st["T"], st["basis"], T0_rows, raw_obj,
+                               active)
 
-        any_run, iters_h, any_flip = _read(
-            (status == RUNNING).any(), iters, to_p2.any())
-        if any_flip:
-            # The reference's phase flip, at the chunk's end: evict the
-            # artificials, install the phase-2 objective, and reset the
-            # progress state and the Devex framework.
-            flip_b = to_p2[:, None]
-            if bounded:
-                T_ev, basis_ev = _evict_artificials_bounded_b(
-                    T, basis, bst["at_upper"], art_mask_ext, col_mask_p2, tol)
-                # Eviction re-bases rows: refresh the carried row state.
-                bl = basis_ev.long()
-                bst["ub_B"] = torch.where(flip_b, ub.gather(1, bl),
-                                          bst["ub_B"])
-                bst["is_art_row"] = torch.where(
-                    flip_b, art_mask_ext.gather(1, bl), bst["is_art_row"])
-                T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
-                # The objective cell with the at-upper terms, which the
-                # price-out cannot know about.
-                _, z_up = _at_upper_terms(bst["at_upper"], ub, obj_row_p2)
-                T_p2[:, -1, -1] = -((obj_row_p2.gather(1, bl)
-                                     * T_p2[:, :-1, -1]).sum(-1) + z_up)
-            else:
-                T_ev, basis_ev = _evict_artificials_b(T, basis, art_mask_ext,
-                                                      col_mask_p2, tol)
-                T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
-            T = torch.where(flip_b[:, :, None], T_p2, T)
-            basis = torch.where(flip_b, basis_ev, basis)
-            phase = torch.where(to_p2, 2, phase)
-            best_obj = torch.where(to_p2, math.inf, best_obj)
-            no_imp = torch.where(to_p2, 0, no_imp)
-            if devex:
-                w = torch.where(flip_b, 1.0, w)
-            to_p2 = torch.zeros_like(to_p2)
-        if phase2_only and any_run and iters_h < max_iters:
-            # Drift refactor at the chunk boundary, as the reference's
-            # outer loop body.
-            T = refactor(obj_row_p2)
+        iters_h, any_run = 0, 1
+        # The reference refactors at the start of iteration k for
+        # k = refactor_every - 1, 2*refactor_every - 1, ...
+        next_ref = refactor_every - 1
+        while any_run and iters_h < max_iters:
+            if not phase2_only and iters_h == next_ref:
+                st["T"].copy_(refactor(obj_rows()))
+                next_ref += refactor_every
+            n_steps = refactor_every if phase2_only else min(
+                next_ref - iters_h, _FLIP_CHUNK)
+            lp.run(_batch_chunk, min(n_steps, max_iters - iters_h))
+            if _on_first_chunk is not None:
+                _on_first_chunk()
+                _on_first_chunk = None
+            any_run, iters_h, any_flip = _read(
+                (st["status"] == RUNNING).any(), st["iters"],
+                st["to_p2"].any())
+            if any_flip:
+                _flip_to_phase2(st, bounded, ub, art_mask_ext, col_mask_p2,
+                                obj_row_p2, tol, devex)
+            if phase2_only and any_run and iters_h < max_iters:
+                # Drift refactor at the chunk boundary, as the reference's
+                # outer loop body.
+                st["T"].copy_(refactor(obj_row_p2))
 
     # Final polish of x_B and the objective (see the JAX function).
+    T, basis, phase = state["T"], state["basis"], state["phase"]
+    raw = torch.where((phase == 1)[:, None], obj_row_p1, obj_row_p2)
     if bounded:
-        T = _refine_solution_bounded_b(T, basis, basis0, T0_rows, obj_rows(),
-                                       bst["at_upper"], ub)
+        T = _refine_solution_bounded_b(T, basis, basis0, T0_rows, raw,
+                                       state["at_upper"], ub)
     else:
-        T = _refine_solution_b(T, basis, basis0, T0_rows, obj_rows())
-    status = torch.where(status == RUNNING, STATUS_ITERATION_LIMIT, status)
-    return (T, basis, None if bst is None else bst["at_upper"], status,
-            iters_h, pivots)
+        T = _refine_solution_b(T, basis, basis0, T0_rows, raw)
+    status = torch.where(state["status"] == RUNNING, STATUS_ITERATION_LIMIT,
+                         state["status"])
+    return (T, basis, state["at_upper"] if bounded else None, status,
+            iters_h, state["pivots"])
+
+
+def _flip_to_phase2(st, bounded, ub, art_mask_ext, col_mask_p2, obj_row_p2,
+                    tol, devex):
+    """The reference's phase flip, at a chunk's end, in place on the loop
+    state: evict the artificials, install the phase-2 objective, and reset
+    the progress state and the Devex framework of the instances in
+    ``to_p2``."""
+    T, basis, to_p2 = st["T"], st["basis"], st["to_p2"]
+    flip_b = to_p2[:, None]
+    if bounded:
+        T_ev, basis_ev = _evict_artificials_bounded_b(
+            T, basis, st["at_upper"], art_mask_ext, col_mask_p2, tol)
+        # Eviction re-bases rows: refresh the carried row state.
+        bl = basis_ev.long()
+        st["ub_B"].copy_(torch.where(flip_b, ub.gather(1, bl), st["ub_B"]))
+        st["is_art_row"].copy_(torch.where(
+            flip_b, art_mask_ext.gather(1, bl), st["is_art_row"]))
+        T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
+        # The objective cell with the at-upper terms, which the price-out
+        # cannot know about.
+        _, z_up = _at_upper_terms(st["at_upper"], ub, obj_row_p2)
+        T_p2[:, -1, -1] = -((obj_row_p2.gather(1, bl)
+                             * T_p2[:, :-1, -1]).sum(-1) + z_up)
+    else:
+        T_ev, basis_ev = _evict_artificials_b(T, basis, art_mask_ext,
+                                              col_mask_p2, tol)
+        T_p2 = _price_out_b(T_ev, basis_ev, obj_row_p2)
+    T.copy_(torch.where(flip_b[:, :, None], T_p2, T))
+    basis.copy_(torch.where(flip_b, basis_ev, basis))
+    st["phase"].copy_(torch.where(to_p2, 2, st["phase"]))
+    st["best_obj"].copy_(torch.where(to_p2, math.inf, st["best_obj"]))
+    st["no_imp"].copy_(torch.where(to_p2, 0, st["no_imp"]))
+    if devex:
+        st["w"].copy_(torch.where(flip_b, 1.0, st["w"]))
+    to_p2.zero_()
 
 
 def extract_solution_batch(T, basis, n_vars: int):

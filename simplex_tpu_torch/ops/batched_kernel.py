@@ -102,7 +102,10 @@ def _prepare(T, basis, cm1, cm2, phase, status, use_bland, weights):
                 torch.bool:
             raise ValueError(f"{name} must be an integer (B,) tensor")
         ints.append(v.to(torch.int32).contiguous())
-    bland = on_dev("use_bland", torch.as_tensor(use_bland, device=dev))
+    # A tensor must already be on T's device: the solve loops' flags are,
+    # and a captured chunk may copy nothing from the host.
+    bland = on_dev("use_bland", use_bland if isinstance(
+        use_bland, torch.Tensor) else torch.as_tensor(use_bland, device=dev))
     bland = (bland != 0).reshape(-1).expand(B).contiguous()
     if weights is None:
         w, padded = torch.ones((B, N), dtype=T.dtype, device=dev), False
@@ -133,7 +136,7 @@ def _step_ref(T, basis, cm1, cm2, phase, status, bland, w, tol, devex):
     B, M, N = T.shape
     dt, dev = T.dtype, T.device
     eps = torch.finfo(dt).eps
-    tol_t = torch.tensor(tol, dtype=dt, device=dev)
+    tol_t = torch.full((), tol, dtype=dt, device=dev)
     in_p1 = (phase == 1)[:, None]
     live = (status == RUNNING)[:, None]
 
@@ -253,6 +256,7 @@ def fused_pivot_step_(T, basis, cm1, cm2, phase, status, use_bland,
     lib = kernels.library()
     B, M, N = T.shape
     dev = T.device
+    # From the graph's memory pool when a chunk is being captured.
     sr = torch.empty((2, B), dtype=torch.int32, device=dev)
     flags = torch.empty((3, B), dtype=torch.bool, device=dev)
     fn = (lib.k2_fused_pivot_step_f32 if T.dtype == torch.float32
@@ -320,7 +324,7 @@ def _step_bounded_ref(T, basis, at_upper, cm1, cm2, phase, status, bland, w,
     B, M, N = T.shape
     dt, dev = T.dtype, T.device
     eps = torch.finfo(dt).eps
-    tol_t = torch.tensor(tol, dtype=dt, device=dev)
+    tol_t = torch.full((), tol, dtype=dt, device=dev)
     in_p1 = phase == 1
     live = status == RUNNING
     idx_n = torch.arange(N, dtype=torch.int32, device=dev)
@@ -386,8 +390,8 @@ def _step_bounded_ref(T, basis, at_upper, cm1, cm2, phase, status, bland, w,
         harris_cand = harris_cand | art_exit
         # The art-exit bonus is added in T's dtype, as the reference adds
         # it: in float32 every art-exit row rounds to 1e30 and ties.
-        hval = hval + torch.where(art_exit, torch.tensor(1e30, dtype=dt,
-                                                         device=dev), 0.0)
+        hval = hval + torch.where(art_exit, torch.full((), 1e30, dtype=dt,
+                                                       device=dev), 0.0)
     hval = torch.where(harris_cand, hval, -math.inf)
     r_harris = _first_where(hval == hval.amax(-1, keepdim=True), idx_m)
     near = cand & (t_row <= (min_row + 64.0 * eps
@@ -528,6 +532,7 @@ def fused_pivot_step_bounded_(T, basis, at_upper, cm1, cm2, phase, status,
     lib = kernels.library()
     B, M, N = T.shape
     dev = T.device
+    # From the graph's memory pool when a chunk is being captured.
     sr = torch.empty((2, B), dtype=torch.int32, device=dev)
     flags = torch.empty((3, B), dtype=torch.bool, device=dev)
     fn = (lib.k3_fused_pivot_step_bounded_f32 if T.dtype == torch.float32

@@ -124,7 +124,8 @@ def pivot_update_(T: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
 
     lib = kernels.library()
     R, W = T.shape
-    # The pivot column (R) then the pivot row (W), in one allocation.
+    # The pivot column (R) then the pivot row (W), in one allocation (from
+    # the graph's memory pool when a solve loop's chunk is being captured).
     side = torch.empty(R + W, dtype=T.dtype, device=T.device)
     col = side.data_ptr()
     prow = col + R * T.element_size()

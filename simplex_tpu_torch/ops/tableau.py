@@ -20,10 +20,12 @@ Differences from the JAX module, all deliberate:
 * The ``lax.while_loop`` becomes a host loop over chunks of device steps.
   Each step is branch-free on the device: pricing, the masked Devex update
   and K1 read a 0-d ``do_pivot`` flag instead of branching, so nothing is
-  read back to the host per pivot.  The host reads the loop state once per
-  chunk (counted in ``STATE_READS``) and takes the accept / refactor
-  decision there, which puts every refactor on the same pivot count as the
-  JAX loop.  The dual loops have the same shape.
+  read back to the host per pivot.  On the card each chunk is one CUDA
+  graph, replayed (``runtime/graphs.py``); on the CPU it runs eagerly.
+  The host reads the loop state once per chunk (counted in
+  ``STATE_READS``) and takes the accept / refactor decision there, which
+  puts every refactor on the same pivot count as the JAX loop.  The dual
+  loops have the same shape.
 * ``_gather_col_single`` (a one-hot matmul, which spares the TPU a lane
   gather) is an ``index_select``: the two agree for a finite tableau.
 * ``basis`` is int64 (torch's index type); the JAX package keeps int32.
@@ -45,6 +47,7 @@ from ..core.problem import (
     STATUS_UNBOUNDED,
     StandardForm,
 )
+from ..runtime import graphs
 from .pivot_kernel import pivot_update_
 
 RUNNING = -1  # internal sentinel while the pivot loop is active
@@ -193,6 +196,45 @@ def _devex_update(w, T, basis, r, s):
     return torch.where(torch.max(w_new) > 1e8, torch.ones_like(w_new), w_new)
 
 
+def _improved_below(T, best, tol):
+    """Whether the objective ``-T[-1, -1]`` fell below ``best`` by more than
+    the tolerance, and the objective."""
+    obj = -T[-1, -1]
+    return obj < best - tol * (1.0 + torch.abs(best)), obj
+
+
+def _phase_chunk(st, cs, static, n_steps: int):
+    """``n_steps`` device steps of :func:`_run_phase`'s loop, the chunk body
+    that ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.
+    Returns the new state; ``T`` and ``basis`` are updated in place."""
+    tol, max_iters, bland_after, stall_limit, refactor_every, devex = static
+    i64 = torch.int64
+    T, basis, col_mask = st["T"], st["basis"], cs["col_mask"]
+    w, iters, since_ref = st["w"], st["iters"], st["since_ref"]
+    stall, no_imp, best = st["stall"], st["no_imp"], st["best"]
+    for _ in range(n_steps):
+        use_bland = no_imp >= bland_after
+        s, r, optimal, unbounded = select_pivot(
+            T, basis, col_mask, tol, use_bland,
+            weights=w if devex else None)
+        want_stop = optimal | unbounded
+        do = ((~want_stop) & (since_ref < refactor_every)
+              & (iters < max_iters) & (no_imp < stall_limit))
+        if devex:
+            w = torch.where(do, _devex_update(w, T, basis, r, s), w)
+        pivot_update(T, basis, r, s, clamp_rhs=True, do_pivot=do)
+        step = do.to(i64)
+        since_ref = since_ref + step
+        iters = iters + step
+        improved, obj = _improved_below(T, best, tol)
+        no_imp = torch.where(improved, 0, no_imp + step)
+        stall = torch.where(improved, 0, stall)
+        best = torch.minimum(best, obj)
+    return {"w": w, "iters": iters, "since_ref": since_ref, "stall": stall,
+            "no_imp": no_imp, "best": best, "want_stop": want_stop,
+            "optimal": optimal}
+
+
 def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
                bland_after, refactor_every, iters0: int, devex: bool = False):
     """Pivot until optimal / unbounded / iteration cap, in place on ``T``.
@@ -200,11 +242,12 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
     The JAX loop's per-iteration three-way switch (accept, refactor, pivot)
     is split between the device and the host:
 
-    * a chunk of ``refactor_every - since_ref + 1`` device steps only ever
-      pivots.  A step pivots when there is no verdict, the refactor period
-      has room, and neither the iteration cap nor the stall cutoff is hit.
-      Otherwise the step is a no-op, and since a no-op leaves the state as
-      it was, every later step of the chunk is one too;
+    * a chunk of ``refactor_every - since_ref + 1`` device steps
+      (:func:`_phase_chunk`; one CUDA graph on the card) only ever pivots.
+      A step pivots when there is no verdict, the refactor period has room,
+      and neither the iteration cap nor the stall cutoff is hit.  Otherwise
+      the step is a no-op, and since a no-op leaves the state as it was,
+      every later step of the chunk is one too;
     * once per chunk the host reads the state (one sync) and takes the
       JAX loop's non-pivot branch: accept a verdict from a freshly
       refactorized tableau (or after 3 stalled confirms), otherwise
@@ -215,55 +258,41 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
     dev, dt = T.device, T.dtype
     i64 = torch.int64
     stall_limit = bland_after + 1024
-    w = torch.ones((T.shape[1] - 1,), dtype=dt, device=dev)
-    iters = _full(iters0, i64, dev)
-    since_ref = _full(1, i64, dev)  # first verdict is confirmed too
-    stall = _full(0, i64, dev)
-    no_imp = _full(0, i64, dev)
-    best = _full(math.inf, dt, dev)
+    state = {"T": T, "basis": basis,
+             "w": torch.ones((T.shape[1] - 1,), dtype=dt, device=dev),
+             "iters": _full(iters0, i64, dev),
+             "since_ref": _full(1, i64, dev),  # first verdict confirmed too
+             "stall": _full(0, i64, dev), "no_imp": _full(0, i64, dev),
+             "best": _full(math.inf, dt, dev),
+             "want_stop": _full(False, torch.bool, dev),
+             "optimal": _full(False, torch.bool, dev)}
+    static = (float(tol), int(max_iters), int(bland_after), stall_limit,
+              int(refactor_every), bool(devex))
     since0 = 1
-
-    def improved_since(best_):
-        obj = -T[-1, -1]
-        return obj < best_ - tol * (1.0 + torch.abs(best_)), obj
-
-    while True:
-        for _ in range(refactor_every - since0 + 1):
-            use_bland = no_imp >= bland_after
-            s, r, optimal, unbounded = select_pivot(
-                T, basis, col_mask, tol, use_bland,
-                weights=w if devex else None)
-            want_stop = optimal | unbounded
-            do = ((~want_stop) & (since_ref < refactor_every)
-                  & (iters < max_iters) & (no_imp < stall_limit))
-            if devex:
-                w = torch.where(do, _devex_update(w, T, basis, r, s), w)
-            pivot_update(T, basis, r, s, clamp_rhs=True, do_pivot=do)
-            step = do.to(i64)
-            since_ref = since_ref + step
-            iters = iters + step
-            improved, obj = improved_since(best)
-            no_imp = torch.where(improved, 0, no_imp + step)
-            stall = torch.where(improved, 0, stall)
-            best = torch.minimum(best, obj)
-
-        want, opt, it, ni, st, sr = _read(want_stop, optimal, iters, no_imp,
-                                          stall, since_ref)
-        if it >= max_iters or ni >= stall_limit:
-            status = STATUS_ITERATION_LIMIT
-            break
-        if want and (sr == 0 or st >= 3):
-            status = STATUS_OPTIMAL if opt else STATUS_UNBOUNDED
-            break
-        # Refactor branch: for a verdict (confirm) or for the period.
-        T_new, ok = refactor_tableau(T0_rows, basis, raw_obj)
-        T.copy_(torch.where(ok, T_new, T))
-        improved, obj = improved_since(best)
-        stall = torch.where(improved, 0, stall + int(bool(want)))
-        no_imp = torch.where(improved, 0, no_imp)
-        best = torch.minimum(best, obj)
-        since_ref = _full(0, i64, dev)
-        since0 = 0
+    with graphs.Loop("tableau.phase", state, {"col_mask": col_mask},
+                     static) as lp:
+        st = lp.state
+        while True:
+            lp.run(_phase_chunk, refactor_every - since0 + 1)
+            want, opt, it, ni, stl, sr = _read(
+                st["want_stop"], st["optimal"], st["iters"], st["no_imp"],
+                st["stall"], st["since_ref"])
+            if it >= max_iters or ni >= stall_limit:
+                status = STATUS_ITERATION_LIMIT
+                break
+            if want and (sr == 0 or stl >= 3):
+                status = STATUS_OPTIMAL if opt else STATUS_UNBOUNDED
+                break
+            # Refactor branch: for a verdict (confirm) or for the period.
+            T_new, ok = refactor_tableau(T0_rows, st["basis"], raw_obj)
+            st["T"].copy_(torch.where(ok, T_new, st["T"]))
+            improved, obj = _improved_below(st["T"], st["best"], tol)
+            st["stall"].copy_(torch.where(improved, 0,
+                                          st["stall"] + int(bool(want))))
+            st["no_imp"].copy_(torch.where(improved, 0, st["no_imp"]))
+            st["best"].copy_(torch.minimum(st["best"], obj))
+            st["since_ref"].fill_(0)
+            since0 = 0
     return T, basis, it, status
 
 
@@ -449,6 +478,75 @@ def _refactor_bounded(T0_rows, basis, raw_obj, at_upper, ub_safe):
     return T_new, ok & torch.all(torch.isfinite(T_new))
 
 
+def _dual_chunk(st, cs, static, n_steps: int):
+    """``n_steps`` device steps of :func:`_run_dual`'s loop, the chunk body
+    that ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.
+    Returns the new state; ``T`` and ``basis`` are updated in place."""
+    tol, max_iters, bland_after, refactor_every, devex, bounded = static
+    i64 = torch.int64
+    T, basis, col_mask = st["T"], st["basis"], cs["col_mask"]
+    w, iters, since_ref = st["w"], st["iters"], st["since_ref"]
+    stall, no_imp, best = st["stall"], st["no_imp"], st["best"]
+    new = {}
+    if bounded:
+        at_upper, ub, ub_safe = st["at_upper"], cs["ub"], cs["ub_safe"]
+        cols = cs["cols"]
+    for _ in range(n_steps):
+        use_bland = no_imp >= bland_after
+        if not bounded:
+            r, s, primal_ok, no_pivot = _dual_select(
+                T, col_mask, w, tol, use_bland, devex)
+        else:
+            r, s, primal_ok, no_pivot, leave_up = _dual_select_bounded(
+                T, basis, col_mask, at_upper, ub, w, tol, use_bland, devex)
+        want_stop = primal_ok | no_pivot
+        do = ((~want_stop) & (since_ref < refactor_every)
+              & (iters < max_iters))
+        if devex:
+            w = torch.where(do, _dual_devex_update(w, T, r, s), w)
+        if not bounded:
+            pivot_update(T, basis, r, s, clamp_rhs=False, do_pivot=do)
+        else:
+            # Pre-flip: an entering column at its upper bound returns to
+            # its lower bound (RHS += column * u_s).
+            s1 = s.reshape(1)
+            u_s = torch.where(at_upper.index_select(0, s1)[0],
+                              ub_safe.index_select(0, s1)[0], 0.0)
+            col_s = T.index_select(1, s1)[:, 0]
+            T[:, -1] = torch.where(do, T[:, -1] + u_s * col_s, T[:, -1])
+            at_upper = torch.where(do & (cols == s), False, at_upper)
+            j_out = basis.index_select(0, r.reshape(1))
+            pivot_update(T, basis, r, s, clamp_rhs=False, do_pivot=do)
+            # Post-flip: a variable that leaves above its upper bound parks
+            # at it (RHS -= post-pivot column * u_jout).
+            u_out = torch.where(
+                leave_up, ub_safe.index_select(0, j_out)[0], 0.0)
+            col_out = T.index_select(1, j_out)[:, 0]
+            T[:, -1] = torch.where(do, T[:, -1] + (-u_out) * col_out,
+                                   T[:, -1])
+            at_upper = torch.where(do & (cols == j_out[0]), leave_up,
+                                   at_upper)
+            new["at_upper"] = at_upper
+        step = do.to(i64)
+        since_ref = since_ref + step
+        iters = iters + step
+        improved, obj = _improved_above(T, best, tol)
+        no_imp = torch.where(improved, 0, no_imp + step)
+        stall = torch.where(improved, 0, stall)
+        best = torch.maximum(best, obj)
+    new.update(w=w, iters=iters, since_ref=since_ref, stall=stall,
+               no_imp=no_imp, best=best, want_stop=want_stop,
+               primal_ok=primal_ok)
+    return new
+
+
+def _improved_above(T, best, tol):
+    """Whether the dual objective ``-T[-1, -1]`` rose above ``best`` by more
+    than the tolerance, and the objective."""
+    obj = -T[-1, -1]
+    return obj > best + tol * (1.0 + torch.abs(best)), obj
+
+
 def _run_dual(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
               bland_after, refactor_every, devex, since0, bounds=None):
     """Dual pivots until primal feasible (optimal), a row without an
@@ -456,97 +554,60 @@ def _run_dual(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
     and ``basis`` (and ``bounds["at_upper"]``).
 
     The JAX loop's three-way switch split as in :func:`_run_phase`: a chunk
-    of device steps only pivots, masked by ``do``; once a chunk the host
-    reads the state and accepts a verdict from a fresh refactor (or after
-    3 stalled confirms), or refactors.  The dual objective ``-T[-1, -1]``
-    does not decrease, so progress is a new maximum.  ``since0`` is the
-    refactor counter's start: 1 (the first verdict is confirmed) or 0 (``T``
-    is a fresh refactor).  Returns ``(iters, status)`` as host ints.
+    of device steps (:func:`_dual_chunk`; one CUDA graph on the card) only
+    pivots, masked by ``do``; once a chunk the host reads the state and
+    accepts a verdict from a fresh refactor (or after 3 stalled confirms),
+    or refactors.  The dual objective ``-T[-1, -1]`` does not decrease, so
+    progress is a new maximum.  ``since0`` is the refactor counter's start:
+    1 (the first verdict is confirmed) or 0 (``T`` is a fresh refactor).
+    Returns ``(iters, status)`` as host ints.
     """
     dev, dt = T.device, T.dtype
     i64 = torch.int64
     m, n_cols = T.shape[0] - 1, T.shape[1] - 1
-    w = torch.ones((m,), dtype=dt, device=dev)
-    iters = _full(0, i64, dev)
-    since_ref = _full(since0, i64, dev)
-    stall = _full(0, i64, dev)
-    no_imp = _full(0, i64, dev)
-    best = _full(-math.inf, dt, dev)
-    cols = torch.arange(n_cols, device=dev)
-
-    def improved_over(best_):
-        obj = -T[-1, -1]
-        return obj > best_ + tol * (1.0 + torch.abs(best_)), obj
-
-    while True:
-        for _ in range(refactor_every - since0 + 1):
-            use_bland = no_imp >= bland_after
+    state = {"T": T, "basis": basis,
+             "w": torch.ones((m,), dtype=dt, device=dev),
+             "iters": _full(0, i64, dev),
+             "since_ref": _full(since0, i64, dev),
+             "stall": _full(0, i64, dev), "no_imp": _full(0, i64, dev),
+             "best": _full(-math.inf, dt, dev),
+             "want_stop": _full(False, torch.bool, dev),
+             "primal_ok": _full(False, torch.bool, dev)}
+    consts = {"col_mask": col_mask}
+    if bounds is not None:
+        state["at_upper"] = bounds["at_upper"]
+        consts.update(ub=bounds["ub"], ub_safe=bounds["ub_safe"],
+                      cols=torch.arange(n_cols, device=dev))
+    static = (float(tol), int(max_iters), int(bland_after),
+              int(refactor_every), bool(devex), bounds is not None)
+    with graphs.Loop("tableau.dual", state, consts, static) as lp:
+        st = lp.state
+        while True:
+            lp.run(_dual_chunk, refactor_every - since0 + 1)
+            want, ok, it, stl, sr = _read(st["want_stop"], st["primal_ok"],
+                                          st["iters"], st["stall"],
+                                          st["since_ref"])
+            if it >= max_iters:
+                status = STATUS_ITERATION_LIMIT
+                break
+            if want and (sr == 0 or stl >= 3):
+                status = STATUS_OPTIMAL if ok else STATUS_INFEASIBLE
+                break
+            # Refactor branch: for a verdict (confirm) or for the period.
             if bounds is None:
-                r, s, primal_ok, no_pivot = _dual_select(
-                    T, col_mask, w, tol, use_bland, devex)
+                T_new, ok_t = refactor_tableau(T0_rows, st["basis"], raw_obj)
             else:
-                at_upper, ub, ub_safe = (bounds["at_upper"], bounds["ub"],
-                                         bounds["ub_safe"])
-                r, s, primal_ok, no_pivot, leave_up = _dual_select_bounded(
-                    T, basis, col_mask, at_upper, ub, w, tol, use_bland,
-                    devex)
-            want_stop = primal_ok | no_pivot
-            do = ((~want_stop) & (since_ref < refactor_every)
-                  & (iters < max_iters))
-            if devex:
-                w = torch.where(do, _dual_devex_update(w, T, r, s), w)
-            if bounds is None:
-                pivot_update(T, basis, r, s, clamp_rhs=False, do_pivot=do)
-            else:
-                # Pre-flip: an entering column at its upper bound returns
-                # to its lower bound (RHS += column * u_s).
-                s1 = s.reshape(1)
-                u_s = torch.where(at_upper.index_select(0, s1)[0],
-                                  ub_safe.index_select(0, s1)[0], 0.0)
-                col_s = T.index_select(1, s1)[:, 0]
-                T[:, -1] = torch.where(do, T[:, -1] + u_s * col_s, T[:, -1])
-                at_upper = torch.where(do & (cols == s), False, at_upper)
-                j_out = basis.index_select(0, r.reshape(1))
-                pivot_update(T, basis, r, s, clamp_rhs=False, do_pivot=do)
-                # Post-flip: a variable that leaves above its upper bound
-                # parks at it (RHS -= post-pivot column * u_jout).
-                u_out = torch.where(
-                    leave_up, ub_safe.index_select(0, j_out)[0], 0.0)
-                col_out = T.index_select(1, j_out)[:, 0]
-                T[:, -1] = torch.where(do, T[:, -1] + (-u_out) * col_out,
-                                       T[:, -1])
-                bounds["at_upper"] = torch.where(do & (cols == j_out[0]),
-                                                 leave_up, at_upper)
-            step = do.to(i64)
-            since_ref = since_ref + step
-            iters = iters + step
-            improved, obj = improved_over(best)
-            no_imp = torch.where(improved, 0, no_imp + step)
-            stall = torch.where(improved, 0, stall)
-            best = torch.maximum(best, obj)
-
-        want, ok, it, st, sr = _read(want_stop, primal_ok, iters, stall,
-                                     since_ref)
-        if it >= max_iters:
-            status = STATUS_ITERATION_LIMIT
-            break
-        if want and (sr == 0 or st >= 3):
-            status = STATUS_OPTIMAL if ok else STATUS_INFEASIBLE
-            break
-        # Refactor branch: for a verdict (confirm) or for the period.
-        if bounds is None:
-            T_new, ok_t = refactor_tableau(T0_rows, basis, raw_obj)
-        else:
-            T_new, ok_t = _refactor_bounded(T0_rows, basis, raw_obj,
-                                            bounds["at_upper"],
-                                            bounds["ub_safe"])
-        T.copy_(torch.where(ok_t, T_new, T))
-        improved, obj = improved_over(best)
-        stall = torch.where(improved, 0, stall + int(bool(want)))
-        no_imp = torch.where(improved, 0, no_imp)
-        best = torch.maximum(best, obj)
-        since_ref = _full(0, i64, dev)
-        since0 = 0
+                T_new, ok_t = _refactor_bounded(T0_rows, st["basis"],
+                                                raw_obj, st["at_upper"],
+                                                bounds["ub_safe"])
+            st["T"].copy_(torch.where(ok_t, T_new, st["T"]))
+            improved, obj = _improved_above(st["T"], st["best"], tol)
+            st["stall"].copy_(torch.where(improved, 0,
+                                          st["stall"] + int(bool(want))))
+            st["no_imp"].copy_(torch.where(improved, 0, st["no_imp"]))
+            st["best"].copy_(torch.maximum(st["best"], obj))
+            st["since_ref"].fill_(0)
+            since0 = 0
     return it, status
 
 

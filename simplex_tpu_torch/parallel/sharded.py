@@ -25,7 +25,9 @@ Differences from the JAX module, all of them in how the loop runs:
 
 * ``shard_map`` over a ``lax.while_loop`` becomes a loop on each rank, on
   its own device, with one host read of the loop state a chunk of
-  ``_CHUNK`` steps (``ops/batched.py``'s rule).  Every rank issues the
+  ``_CHUNK`` steps (``ops/batched.py``'s rule); on the card each chunk,
+  its NCCL collectives included, is one replayed CUDA graph
+  (``runtime/graphs.py``).  Every rank issues the
   same collectives in the same order, so the host branches only on state
   that is replicated across a row: the resync step (``since_ref`` is
   counted on the host), the phase flip's reprice (run on every step,
@@ -52,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import torch_device
+from ..runtime import graphs
 from ..core.problem import (
     STATUS_INFEASIBLE,
     STATUS_ITERATION_LIMIT,
@@ -180,6 +183,374 @@ def _matvec(M, v):
     return torch.bmm(M, v[:, :, None])[:, :, 0]
 
 
+def _scatter_cols(cs, idx_full, val_full):
+    """Per-row values at their basis columns: (B, m) -> (B, N+1).  Basis
+    columns are distinct within an instance, so the add sets."""
+    T0 = cs["T0_loc"]
+    return torch.zeros((T0.shape[0], T0.shape[2]), dtype=T0.dtype,
+                       device=T0.device).scatter_add_(
+        1, idx_full.long(), val_full)
+
+
+def _newton_rhs(cs, rg, n_row, T_cur, basis_cur, u_vec=None):
+    """One sharded Newton step on x_B against the original data, kept only
+    where it lowers the residual and stays finite (see the JAX function).
+    Returns the refined RHS column (B, m_loc)."""
+    T0_loc = cs["T0_loc"]
+    b0_loc = T0_loc[:, :, -1]
+    xB_loc = T_cur[:, :, -1]
+    b_eff = b0_loc if u_vec is None else b0_loc - _matvec(T0_loc, u_vec)
+    basis_full = _gather_rows_in(basis_cur, rg, n_row)
+    xfull = _scatter_cols(cs, basis_full, _gather_rows_in(xB_loc, rg, n_row))
+    r0_loc = b_eff - _matvec(T0_loc, xfull)
+    rfull = _scatter_cols(cs, cs["basis0_full"],
+                          _gather_rows_in(r0_loc, rg, n_row))
+    xB1_loc = xB_loc + _matvec(T_cur, rfull)
+    xfull1 = _scatter_cols(cs, basis_full,
+                           _gather_rows_in(xB1_loc, rg, n_row))
+    r1_loc = b_eff - _matvec(T0_loc, xfull1)
+    ss = _reduce(torch.stack([(r0_loc * r0_loc).sum(1),
+                              (r1_loc * r1_loc).sum(1)]), _SUM, rg)
+    finite = _reduce(torch.all(torch.isfinite(xB1_loc), dim=1)
+                     .to(torch.int32), _MIN, rg) > 0
+    better = (ss[1] < ss[0]) & finite
+    return torch.where(better[:, None], xB1_loc, xB_loc)
+
+
+def _reprice(cs, rg, T_cur, basis_cur, raw_obj):
+    """Exact reduced costs for the current rows: raw - c_B' T_rows."""
+    cB = torch.where(cs["rv"], raw_obj.gather(1, basis_cur.long()), 0.0)
+    local_dot = torch.bmm(cB[:, None, :], T_cur)[:, 0]
+    return raw_obj - _reduce(local_dot, _SUM, rg)
+
+
+def _at_upper_vec(cs, at_upper):
+    """The at-upper columns at their bound, with the RHS slot 0."""
+    return torch.cat([torch.where(at_upper, cs["ub_safe"], 0.0),
+                      cs["zero_col"]], dim=1)
+
+
+def _cost_at_upper(cs, raw_obj, at_upper):
+    return torch.where(at_upper, raw_obj[:, :-1] * cs["ub_safe"],
+                       0.0).sum(1)
+
+
+def _gather_rows_in(x, rg, n_row):
+    """:func:`_gather_rows` over the row group ``rg`` of ``n_row`` ranks."""
+    out = _gather(x, rg, n_row)
+    return out.transpose(0, 1).reshape(x.shape[0], n_row * x.shape[1])
+
+
+def _sharded_chunk(st, cs, static, n_steps: int, rf_steps: tuple,
+                   any_p1: bool):
+    """``n_steps`` pivot steps of :func:`_sharded_body`'s loop, the chunk
+    body that ``runtime/graphs.py`` runs eagerly or replays as one CUDA
+    graph (with its collectives).  The drift resync runs on the steps in
+    ``rf_steps``, which the host counted; the phase flip's reprice on every
+    step while ``any_p1``.  Returns the new state; ``T`` is updated in
+    place."""
+    (tol, feas_tol, bland_after, devex, bounded, rg, n_row) = static
+    T = st["T"]
+    Bl, m_loc, N1 = T.shape
+    N = N1 - 1
+    dt = T.dtype
+    i32 = torch.int32
+    inf = math.inf
+    rv, col_idx, art_ext = cs["rv"], cs["col_idx"], cs["art_ext"]
+    col_mask_p1, col_mask_p2 = cs["col_mask_p1"], cs["col_mask_p2"]
+    obj_row_p1, obj_row_p2 = cs["obj_row_p1"], cs["obj_row_p2"]
+    ub, ub_ext = cs["ub"], cs["ub_ext"]
+    basis, obj, phase, status = st["basis"], st["obj"], st["phase"], \
+        st["status"]
+    iters, w, best_obj, no_imp = st["iters"], st["w"], st["best_obj"], \
+        st["no_imp"]
+    at_upper = st["at_upper"]
+    eps = torch.finfo(dt).eps
+    pack_int = N1 < _EXACT_INT[dt]
+    use_j = devex or bounded
+
+    def pmin(x):
+        return _reduce(x, _MIN, rg)
+
+    def pmax(x):
+        return _reduce(x, _MAX, rg)
+
+    def psum(x):
+        return _reduce(x, _SUM, rg)
+
+    for i in range(n_steps):
+        live = status == RUNNING
+        in_p1 = phase == 1
+        col_mask = torch.where(in_p1[:, None], col_mask_p1, col_mask_p2)
+        raw_obj = torch.where(in_p1[:, None], obj_row_p1, obj_row_p2)
+        use_bland = no_imp >= bland_after
+
+        # ---- periodic drift resync: the RHS column and the objective
+        # row, on the step the host counted (every rank together) ------- #
+        if i in rf_steps:
+            xB_n = _newton_rhs(cs, rg, n_row, T, basis,
+                               _at_upper_vec(cs, at_upper) if bounded
+                               else None)
+            obj_n = _reprice(cs, rg, T, basis, raw_obj)
+            cB = torch.where(rv, raw_obj.gather(1, basis.long()), 0.0)
+            z_min = psum((cB * xB_n).sum(1))
+            if bounded:
+                z_min = z_min + _cost_at_upper(cs, raw_obj, at_upper)
+            obj_n[:, -1] = raw_obj[:, -1] - z_min
+            T[:, :, -1] = torch.where(live[:, None], xB_n, T[:, :, -1])
+            obj = torch.where(live[:, None], obj_n, obj)
+
+        # ---- pricing (replicated, no communication) ---------------- #
+        rc = obj[:, :-1]
+        if bounded:
+            eligible = (col_mask & ~at_upper & (rc < -tol)) \
+                | (col_mask & at_upper & (rc > tol))
+            viol = torch.where(eligible, rc.abs(), -inf)
+            if devex:
+                s_price = torch.argmax(
+                    torch.where(eligible, (viol * viol) / w, -inf), dim=-1)
+            else:
+                s_price = torch.argmax(viol, dim=-1)
+        else:
+            rc_m = torch.where(col_mask, rc, inf)
+            eligible = rc_m < -tol
+            if devex:
+                s_price = torch.argmax(
+                    torch.where(eligible, (rc_m * rc_m) / w, -inf), dim=-1)
+            else:
+                s_price = torch.argmin(rc_m, dim=-1)
+        # argmax of a bool mask needs an integer type on CUDA.
+        s = torch.where(use_bland,
+                        torch.argmax(eligible.to(i32), dim=-1), s_price)
+        optimal = ~torch.any(eligible, dim=-1)
+        sl = s[:, None]
+
+        # ---- ratio test (local, then MIN / MAX over the row) ------- #
+        col_loc = T.gather(2, s[:, None, None].expand(Bl, m_loc, 1))[
+            :, :, 0]
+        rhs_loc = T[:, :, -1].clone()
+        basis_l = basis.long()
+        is_art_row = art_ext.gather(1, basis_l)
+        if bounded:
+            s_from_up = at_upper.gather(1, sl)[:, 0]
+            sigma = torch.where(s_from_up, -1.0, 1.0).to(dt)
+            rc_s = rc.gather(1, sl)[:, 0]
+            ub_s = ub.gather(1, sl)[:, 0]
+            ub_s_safe = torch.where(torch.isfinite(ub_s), ub_s, 0.0)
+            dd_loc = sigma[:, None] * col_loc
+            ub_B_loc = ub_ext.gather(1, basis_l)
+        else:
+            dd_loc = col_loc
+        positive = (dd_loc > tol) & rv
+        # Phase 2 only: artificial-basic rows with a nonzero entry
+        # leave at ratio 0.
+        art_exit = ((~in_p1)[:, None] & is_art_row
+                    & (dd_loc.abs() > tol) & rv)
+        # Backward-step clamp — see ops/tableau.select_pivot.
+        rhs_c = torch.clamp_min(rhs_loc, 0.0)
+        t_lo = torch.where(positive,
+                           rhs_c / torch.where(positive, dd_loc, 1.0), inf)
+        t_lo = torch.where(art_exit, 0.0, t_lo)
+        if bounded:
+            negd = (dd_loc < -tol) & rv & torch.isfinite(ub_B_loc)
+            span_c = torch.clamp_min(ub_B_loc - rhs_loc, 0.0)
+            t_hi = torch.where(
+                negd, span_c / torch.where(negd, -dd_loc, 1.0), inf)
+            ratios = torch.minimum(t_lo, t_hi)
+            cand = positive | negd | art_exit
+        else:
+            ratios = t_lo
+            cand = positive | art_exit
+        # Harris pass 1: the tol-relaxed bound (packed with the ratio
+        # minimum into one MIN).
+        delta = tol * (1.0 + rhs_loc.abs())
+        theta_relax = torch.where(
+            positive,
+            (rhs_c + delta) / torch.where(positive, dd_loc, 1.0), inf)
+        if bounded:
+            delta_hi = tol * (1.0 + (ub_B_loc - rhs_loc).abs())
+            theta_relax = torch.minimum(theta_relax, torch.where(
+                negd, (span_c + delta_hi)
+                / torch.where(negd, -dd_loc, 1.0), inf))
+        mins = pmin(torch.stack([torch.amin(ratios, dim=1),
+                                 torch.amin(theta_relax, dim=1)]))
+        global_min, theta_max = mins[0], mins[1]
+        if bounded:
+            theta_all = torch.minimum(global_min, ub_s)
+            unbounded = ~optimal & torch.isinf(theta_all)
+            do_flip = ~optimal & ~unbounded & (ub_s <= global_min)
+            theta_safe = torch.where(torch.isfinite(theta_all),
+                                     theta_all, 0.0)
+        else:
+            unbounded = ~optimal & torch.isinf(global_min)
+
+        # Harris pass 2: the largest pivot element under the bound;
+        # artificial-exit rows get a bonus above any magnitude.
+        harris_cand = (cand & (ratios <= theta_max[:, None])) | art_exit
+        hval = torch.where(harris_cand,
+                           dd_loc.abs() + art_exit.to(dt) * 1e30, -inf)
+        hmax = pmax(torch.amax(hval, dim=1))
+        harris_rows = harris_cand & (hval == hmax[:, None])
+
+        # Bland (stall) mode: smallest basis index among near-minimal
+        # ratios.
+        near = cand & (ratios <= (global_min + 64.0 * eps
+                                  * (1.0 + global_min.abs()))[:, None])
+        sel_cand = torch.where(use_bland[:, None], near, harris_rows)
+        # The unique owner: the least key over the row (basis columns
+        # are distinct within an instance; artificial rows win ties).
+        key_row = basis_l - torch.where(is_art_row, _ART_BONUS, 0)
+        key = torch.where(sel_cand, key_row, _INT_MAX)
+        global_key = pmin(torch.amin(key, dim=1))
+        owner_rows = sel_cand & (key_row == global_key[:, None])
+        has_owner = torch.any(owner_rows, dim=1)
+        r_loc = torch.argmax(owner_rows.to(i32), dim=1)
+
+        # ---- pivot-row broadcast: one SUM of the owner's row and its
+        # scalars (every other rank adds zeros) ---------------------- #
+        r_idx = r_loc[:, None, None].expand(Bl, 1, N1)
+        piv_row_own = T.gather(1, r_idx)[:, 0, :]
+        pivot_own = piv_row_own.gather(1, sl)[:, 0]
+        safe = torch.where(has_owner & (pivot_own.abs() > 0), pivot_own,
+                           1.0)
+        contrib = torch.where(has_owner[:, None],
+                              piv_row_own / safe[:, None], 0.0)
+        extra = []
+        if use_j:
+            j_own = torch.where(owner_rows, basis_l, 0).sum(1)
+            if pack_int:
+                extra.append(j_own.to(dt))
+        if bounded:
+            extra += [
+                torch.where(owner_rows, t_lo, 0.0).sum(1),
+                torch.where(owner_rows, torch.where(
+                    torch.isfinite(t_hi), t_hi, 0.0), 0.0).sum(1),
+                (owner_rows & ~torch.isfinite(t_hi)).to(dt).sum(1)]
+        packed = psum(torch.cat([contrib] + [e[:, None] for e in extra],
+                                dim=1))
+        piv_row = packed[:, :N1]
+        # The clamped step theta = max(rhs_r, 0)/pivot — see
+        # ops/tableau.pivot_update.
+        piv_row[:, -1] = torch.clamp_min(piv_row[:, -1], 0.0)
+        if use_j:
+            j_out = (packed[:, N1].long() if pack_int
+                     else psum(j_own.clone()))
+        if bounded:
+            k = N1 + int(pack_int)
+            t_lo_own = packed[:, k]
+            t_hi_own = torch.where(packed[:, k + 2] > 0, inf,
+                                   packed[:, k + 1])
+            leave_up = t_hi_own < t_lo_own
+            step = torch.minimum(torch.minimum(t_lo_own, t_hi_own),
+                                 theta_safe)
+            step = torch.where(torch.isfinite(step), step, 0.0)
+
+        # ---- decide action per instance ---------------------------- #
+        want_stop = (optimal | unbounded) & live
+        p1_done = want_stop & in_p1
+        infeasible = p1_done & (-obj[:, -1] > feas_tol * cs["b_scale"])
+        to_p2 = p1_done & ~infeasible
+        finish_p2 = want_stop & ~in_p1
+        status = torch.where(
+            infeasible, STATUS_INFEASIBLE,
+            torch.where(finish_p2 & optimal, STATUS_OPTIMAL,
+                        torch.where(finish_p2 & unbounded,
+                                    STATUS_UNBOUNDED, status)))
+        active = live & ~want_stop
+        if bounded:
+            do_flip_now = active & do_flip
+            do_pivot_now = active & ~do_flip
+        else:
+            do_pivot_now = active
+
+        # ---- Devex weights (replicated; pre-pivot pivot row) ------- #
+        if devex:
+            w_s = w.gather(1, sl)
+            alpha = piv_row[:, :-1]
+            w_new = torch.maximum(w, (alpha * alpha) * w_s)
+            w_new = torch.where(col_idx == j_out[:, None],
+                                torch.clamp_min(w_s, 1.0), w_new)
+            w_new = torch.where(col_idx == sl, 1.0, w_new)
+            w_new = torch.where(w_new.amax(dim=1, keepdim=True) > 1e8,
+                                1.0, w_new)
+            w = torch.where(do_pivot_now[:, None], w_new, w)
+
+        # ---- rank-1 update in place, masked (no communication) ----- #
+        # A masked instance's column is scaled to 0 and its row to 0,
+        # so its rows stay as they are; then the owner row is written.
+        col_m = col_loc * do_pivot_now.to(dt)[:, None]
+        piv_m = torch.where(do_pivot_now[:, None], piv_row, 0.0)
+        if Bl == 1:
+            T[0].addr_(col_m[0], piv_m[0], alpha=-1)
+        else:
+            T.baddbmm_(col_m[:, :, None], piv_m[:, None, :], alpha=-1)
+        own_now = (do_pivot_now & has_owner)[:, None, None]
+        T.scatter_(1, r_idx, torch.where(own_now, piv_row[:, None, :],
+                                         T.gather(1, r_idx)))
+        own_piv = do_pivot_now[:, None] & owner_rows
+        if bounded:
+            # Explicit bounded RHS (see the JAX function).
+            z_old = -obj[:, -1]
+            x_enter = torch.where(s_from_up, ub_s_safe - step, step)
+            rhs_piv = rhs_loc - dd_loc * step[:, None]
+            rhs_piv = torch.where(owner_rows, x_enter[:, None], rhs_piv)
+            ub_B_new = ub_ext.gather(
+                1, torch.where(owner_rows, sl, basis_l))
+            rhs_piv = torch.minimum(torch.clamp_min(rhs_piv, 0.0),
+                                    ub_B_new)
+            rhs_flip = torch.minimum(torch.clamp_min(
+                rhs_loc - dd_loc * ub_s_safe[:, None], 0.0), ub_B_loc)
+            T[:, :, -1] = torch.where(
+                do_pivot_now[:, None], rhs_piv,
+                torch.where(do_flip_now[:, None], rhs_flip, rhs_loc))
+        basis = torch.where(own_piv, s[:, None].to(i32), basis)
+
+        # ---- objective row (replicated) ---------------------------- #
+        obj_new = obj - obj.gather(1, sl) * piv_row
+        if bounded:
+            z_piv = z_old + sigma * rc_s * step
+            z_flip = z_old + sigma * rc_s * ub_s_safe
+            obj = torch.where(do_pivot_now[:, None], obj_new, obj)
+            obj[:, -1] = torch.where(
+                do_pivot_now, -z_piv,
+                torch.where(do_flip_now, -z_flip, obj[:, -1]))
+            # at-upper bookkeeping: the leaving column exits at its
+            # bound; the entering or flipping column toggles.
+            jout_hot = col_idx == j_out[:, None]
+            s_hot = col_idx == sl
+            at_up_piv = torch.where(jout_hot, leave_up[:, None], at_upper)
+            at_up_piv = at_up_piv & ~s_hot
+            at_upper = torch.where(
+                do_pivot_now[:, None], at_up_piv,
+                torch.where(do_flip_now[:, None], at_upper ^ s_hot,
+                            at_upper))
+        else:
+            obj = torch.where(active[:, None], obj_new, obj)
+
+        # ---- objective progress (stall-gated Bland) ---------------- #
+        obj_val = -obj[:, -1]
+        improved = obj_val < best_obj - tol * (1.0 + best_obj.abs())
+        best_obj = torch.minimum(best_obj, obj_val)
+        no_imp = torch.where(improved, 0, no_imp + active.to(i32))
+
+        # ---- phase flip: the phase-2 objective, priced out; masked by
+        # to_p2 and run by every rank while any may flip ------------- #
+        if any_p1:
+            priced = _reprice(cs, rg, T, basis, obj_row_p2)
+            if bounded:
+                priced[:, -1] -= _cost_at_upper(cs, obj_row_p2, at_upper)
+            obj = torch.where(to_p2[:, None], priced, obj)
+            phase = torch.where(to_p2, 2, phase)
+        best_obj = torch.where(to_p2, inf, best_obj)
+        no_imp = torch.where(to_p2, 0, no_imp)
+        if devex:
+            w = torch.where(to_p2[:, None], 1.0, w)
+        iters = iters + live.any()
+    return {"basis": basis, "obj": obj, "phase": phase, "status": status,
+            "iters": iters, "w": w, "best_obj": best_obj, "no_imp": no_imp,
+            "at_upper": at_upper}
+
+
 def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
                   art_mask, obj_row_p1, obj_row_p2, need_p1,
                   row_valid_loc, ub, mesh, tol, feas_tol, max_iters,
@@ -198,390 +569,85 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
     ub:           (B, N) replicated upper bounds (+inf where unbounded)
 
     ``bounded``: the native 0 <= x <= ub machinery (see the JAX function).
+    Each chunk is :func:`_sharded_chunk`, one CUDA graph on the card, its
+    all-reduces included (NCCL); gloo on the CPU runs it eagerly.
     Returns ``(T_loc, basis_loc, obj, status, iters, at_upper)``; ``iters``
     a host int, this batch shard's own count.
     """
     rg = mesh.row_group
+    n_row = mesh.shape["row"]
     Bl, m_loc, N1 = T_loc.shape
     N = N1 - 1
     dt, dev = T_loc.dtype, T_loc.device
     i32 = torch.int32
     inf = math.inf
-    col_idx = torch.arange(N, device=dev)[None, :]
     rv = row_valid_loc
-
-    def pmin(x):
-        return _reduce(x, _MIN, rg)
-
-    def pmax(x):
-        return _reduce(x, _MAX, rg)
-
-    def psum(x):
-        return _reduce(x, _SUM, rg)
-
-    def gather_rows(x):
-        return _gather_rows(x, mesh)
-
-    b_scale = 1.0 + pmax(torch.amax(
-        torch.where(rv, T_loc[:, :, -1].abs(), 0.0), dim=1))
 
     # Extended artificial mask including the RHS slot (basis may point at
     # padding unit columns, which are never artificial).
     zero_lane = torch.zeros((Bl, 1), dtype=torch.bool, device=dev)
-    art_ext = torch.cat([art_mask, zero_lane], dim=1)
-    ub_safe = torch.where(torch.isfinite(ub), ub, 0.0)
-    ub_ext = torch.cat([ub, torch.full((Bl, 1), inf, dtype=dt, device=dev)],
-                       dim=1)
-    zero_col = torch.zeros((Bl, 1), dtype=dt, device=dev)
-
     # Drift anchors: the initial rows and basis index the exact original
     # data; the current tableau's basis0 columns approximate B^{-1}.
-    T0_loc = T_loc
-    b0_loc = T0_loc[:, :, -1]
-    basis0_full = gather_rows(basis_loc)
+    cs = {"T0_loc": T_loc, "rv": rv,
+          "col_idx": torch.arange(N, device=dev)[None, :],
+          "art_ext": torch.cat([art_mask, zero_lane], dim=1),
+          "col_mask_p1": col_mask_p1, "col_mask_p2": col_mask_p2,
+          "obj_row_p1": obj_row_p1, "obj_row_p2": obj_row_p2, "ub": ub,
+          "ub_safe": torch.where(torch.isfinite(ub), ub, 0.0),
+          "ub_ext": torch.cat([ub, torch.full((Bl, 1), inf, dtype=dt,
+                                              device=dev)], dim=1),
+          "zero_col": torch.zeros((Bl, 1), dtype=dt, device=dev),
+          "b_scale": 1.0 + _reduce(torch.amax(
+              torch.where(rv, T_loc[:, :, -1].abs(), 0.0), dim=1), _MAX, rg),
+          "basis0_full": _gather_rows_in(basis_loc, rg, n_row)}
 
-    def scatter_cols(idx_full, val_full):
-        """Per-row values at their basis columns: (B, m) -> (B, N+1).
-        Basis columns are distinct within an instance, so the add sets."""
-        return torch.zeros((Bl, N1), dtype=dt, device=dev).scatter_add_(
-            1, idx_full.long(), val_full)
-
-    def newton_rhs(T_cur, basis_cur, u_vec=None):
-        """One sharded Newton step on x_B against the original data, kept
-        only where it lowers the residual and stays finite (see the JAX
-        function).  Returns the refined RHS column (B, m_loc)."""
-        xB_loc = T_cur[:, :, -1]
-        b_eff = b0_loc if u_vec is None else b0_loc - _matvec(T0_loc, u_vec)
-        basis_full = gather_rows(basis_cur)
-        xfull = scatter_cols(basis_full, gather_rows(xB_loc))
-        r0_loc = b_eff - _matvec(T0_loc, xfull)
-        rfull = scatter_cols(basis0_full, gather_rows(r0_loc))
-        xB1_loc = xB_loc + _matvec(T_cur, rfull)
-        xfull1 = scatter_cols(basis_full, gather_rows(xB1_loc))
-        r1_loc = b_eff - _matvec(T0_loc, xfull1)
-        ss = psum(torch.stack([(r0_loc * r0_loc).sum(1),
-                               (r1_loc * r1_loc).sum(1)]))
-        finite = pmin(torch.all(torch.isfinite(xB1_loc), dim=1).to(i32)) > 0
-        better = (ss[1] < ss[0]) & finite
-        return torch.where(better[:, None], xB1_loc, xB_loc)
-
-    def reprice(T_cur, basis_cur, raw_obj):
-        """Exact reduced costs for the current rows: raw - c_B' T_rows."""
-        cB = torch.where(rv, raw_obj.gather(1, basis_cur.long()), 0.0)
-        local_dot = torch.bmm(cB[:, None, :], T_cur)[:, 0]
-        return raw_obj - psum(local_dot)
-
-    def at_upper_vec(at_upper):
-        """The at-upper columns at their bound, with the RHS slot 0."""
-        return torch.cat([torch.where(at_upper, ub_safe, 0.0), zero_col],
-                         dim=1)
-
-    def cost_at_upper(raw_obj, at_upper):
-        return torch.where(at_upper, raw_obj[:, :-1] * ub_safe, 0.0).sum(1)
-
-    T = T_loc.clone()
-    basis = basis_loc.to(i32).clone()
-    obj = obj.clone()
-    phase = torch.where(need_p1, 1, 2).to(i32)
-    status = torch.full((Bl,), RUNNING, dtype=i32, device=dev)
-    iters = torch.zeros((), dtype=torch.int64, device=dev)
-    w = torch.ones((Bl, N), dtype=dt, device=dev)
-    best_obj = torch.full((Bl,), inf, dtype=dt, device=dev)
-    no_imp = torch.zeros((Bl,), dtype=i32, device=dev)
-    at_upper = torch.zeros((Bl, N), dtype=torch.bool, device=dev)
-    eps = torch.finfo(dt).eps
-    pack_int = N1 < _EXACT_INT[dt]
-    use_j = devex or bounded
+    state = {"T": T_loc.clone(), "basis": basis_loc.to(i32).clone(),
+             "obj": obj.clone(), "phase": torch.where(need_p1, 1, 2).to(i32),
+             "status": torch.full((Bl,), RUNNING, dtype=i32, device=dev),
+             "iters": torch.zeros((), dtype=torch.int64, device=dev),
+             "w": torch.ones((Bl, N), dtype=dt, device=dev),
+             "best_obj": torch.full((Bl,), inf, dtype=dt, device=dev),
+             "no_imp": torch.zeros((Bl,), dtype=i32, device=dev),
+             "at_upper": torch.zeros((Bl, N), dtype=torch.bool, device=dev)}
+    static = (float(tol), float(feas_tol), int(bland_after), bool(devex),
+              bool(bounded), rg, n_row)
 
     since_ref, iters_h = 1, 0
     any_run, any_p1 = True, bool(need_p1.any())
-    while any_run and iters_h < max_iters:
-        n_steps = min(_CHUNK, max_iters - iters_h)
-        for _ in range(n_steps):
-            live = status == RUNNING
-            in_p1 = phase == 1
-            col_mask = torch.where(in_p1[:, None], col_mask_p1, col_mask_p2)
-            raw_obj = torch.where(in_p1[:, None], obj_row_p1, obj_row_p2)
-            use_bland = no_imp >= bland_after
-
-            # ---- periodic drift resync: the RHS column and the objective
-            # row, on the step the host counted (every rank together) ---- #
-            do_rf = since_ref >= refactor_every
-            if do_rf:
-                xB_n = newton_rhs(T, basis,
-                                  at_upper_vec(at_upper) if bounded else None)
-                obj_n = reprice(T, basis, raw_obj)
-                cB = torch.where(rv, raw_obj.gather(1, basis.long()), 0.0)
-                z_min = psum((cB * xB_n).sum(1))
-                if bounded:
-                    z_min = z_min + cost_at_upper(raw_obj, at_upper)
-                obj_n[:, -1] = raw_obj[:, -1] - z_min
-                T[:, :, -1] = torch.where(live[:, None], xB_n, T[:, :, -1])
-                obj = torch.where(live[:, None], obj_n, obj)
-            since_ref = 1 if do_rf else since_ref + 1
-
-            # ---- pricing (replicated, no communication) ---------------- #
-            rc = obj[:, :-1]
-            if bounded:
-                eligible = (col_mask & ~at_upper & (rc < -tol)) \
-                    | (col_mask & at_upper & (rc > tol))
-                viol = torch.where(eligible, rc.abs(), -inf)
-                if devex:
-                    s_price = torch.argmax(
-                        torch.where(eligible, (viol * viol) / w, -inf), dim=-1)
+    with graphs.Loop("sharded.body", state, cs, static) as lp:
+        while any_run and iters_h < max_iters:
+            n_steps = min(_CHUNK, max_iters - iters_h)
+            # The steps of this chunk on which the resync falls, counted on
+            # the host as every rank counts them.
+            rf_steps = []
+            for i in range(n_steps):
+                if since_ref >= refactor_every:
+                    rf_steps.append(i)
+                    since_ref = 1
                 else:
-                    s_price = torch.argmax(viol, dim=-1)
-            else:
-                rc_m = torch.where(col_mask, rc, inf)
-                eligible = rc_m < -tol
-                if devex:
-                    s_price = torch.argmax(
-                        torch.where(eligible, (rc_m * rc_m) / w, -inf), dim=-1)
-                else:
-                    s_price = torch.argmin(rc_m, dim=-1)
-            # argmax of a bool mask needs an integer type on CUDA.
-            s = torch.where(use_bland,
-                            torch.argmax(eligible.to(i32), dim=-1), s_price)
-            optimal = ~torch.any(eligible, dim=-1)
-            sl = s[:, None]
-
-            # ---- ratio test (local, then MIN / MAX over the row) ------- #
-            col_loc = T.gather(2, s[:, None, None].expand(Bl, m_loc, 1))[
-                :, :, 0]
-            rhs_loc = T[:, :, -1].clone()
-            basis_l = basis.long()
-            is_art_row = art_ext.gather(1, basis_l)
-            if bounded:
-                s_from_up = at_upper.gather(1, sl)[:, 0]
-                sigma = torch.where(s_from_up, -1.0, 1.0).to(dt)
-                rc_s = rc.gather(1, sl)[:, 0]
-                ub_s = ub.gather(1, sl)[:, 0]
-                ub_s_safe = torch.where(torch.isfinite(ub_s), ub_s, 0.0)
-                dd_loc = sigma[:, None] * col_loc
-                ub_B_loc = ub_ext.gather(1, basis_l)
-            else:
-                dd_loc = col_loc
-            positive = (dd_loc > tol) & rv
-            # Phase 2 only: artificial-basic rows with a nonzero entry
-            # leave at ratio 0.
-            art_exit = ((~in_p1)[:, None] & is_art_row
-                        & (dd_loc.abs() > tol) & rv)
-            # Backward-step clamp — see ops/tableau.select_pivot.
-            rhs_c = torch.clamp_min(rhs_loc, 0.0)
-            t_lo = torch.where(positive,
-                               rhs_c / torch.where(positive, dd_loc, 1.0), inf)
-            t_lo = torch.where(art_exit, 0.0, t_lo)
-            if bounded:
-                negd = (dd_loc < -tol) & rv & torch.isfinite(ub_B_loc)
-                span_c = torch.clamp_min(ub_B_loc - rhs_loc, 0.0)
-                t_hi = torch.where(
-                    negd, span_c / torch.where(negd, -dd_loc, 1.0), inf)
-                ratios = torch.minimum(t_lo, t_hi)
-                cand = positive | negd | art_exit
-            else:
-                ratios = t_lo
-                cand = positive | art_exit
-            # Harris pass 1: the tol-relaxed bound (packed with the ratio
-            # minimum into one MIN).
-            delta = tol * (1.0 + rhs_loc.abs())
-            theta_relax = torch.where(
-                positive,
-                (rhs_c + delta) / torch.where(positive, dd_loc, 1.0), inf)
-            if bounded:
-                delta_hi = tol * (1.0 + (ub_B_loc - rhs_loc).abs())
-                theta_relax = torch.minimum(theta_relax, torch.where(
-                    negd, (span_c + delta_hi)
-                    / torch.where(negd, -dd_loc, 1.0), inf))
-            mins = pmin(torch.stack([torch.amin(ratios, dim=1),
-                                     torch.amin(theta_relax, dim=1)]))
-            global_min, theta_max = mins[0], mins[1]
-            if bounded:
-                theta_all = torch.minimum(global_min, ub_s)
-                unbounded = ~optimal & torch.isinf(theta_all)
-                do_flip = ~optimal & ~unbounded & (ub_s <= global_min)
-                theta_safe = torch.where(torch.isfinite(theta_all),
-                                         theta_all, 0.0)
-            else:
-                unbounded = ~optimal & torch.isinf(global_min)
-
-            # Harris pass 2: the largest pivot element under the bound;
-            # artificial-exit rows get a bonus above any magnitude.
-            harris_cand = (cand & (ratios <= theta_max[:, None])) | art_exit
-            hval = torch.where(harris_cand,
-                               dd_loc.abs() + art_exit.to(dt) * 1e30, -inf)
-            hmax = pmax(torch.amax(hval, dim=1))
-            harris_rows = harris_cand & (hval == hmax[:, None])
-
-            # Bland (stall) mode: smallest basis index among near-minimal
-            # ratios.
-            near = cand & (ratios <= (global_min + 64.0 * eps
-                                      * (1.0 + global_min.abs()))[:, None])
-            sel_cand = torch.where(use_bland[:, None], near, harris_rows)
-            # The unique owner: the least key over the row (basis columns
-            # are distinct within an instance; artificial rows win ties).
-            key_row = basis_l - torch.where(is_art_row, _ART_BONUS, 0)
-            key = torch.where(sel_cand, key_row, _INT_MAX)
-            global_key = pmin(torch.amin(key, dim=1))
-            owner_rows = sel_cand & (key_row == global_key[:, None])
-            has_owner = torch.any(owner_rows, dim=1)
-            r_loc = torch.argmax(owner_rows.to(i32), dim=1)
-
-            # ---- pivot-row broadcast: one SUM of the owner's row and its
-            # scalars (every other rank adds zeros) ---------------------- #
-            r_idx = r_loc[:, None, None].expand(Bl, 1, N1)
-            piv_row_own = T.gather(1, r_idx)[:, 0, :]
-            pivot_own = piv_row_own.gather(1, sl)[:, 0]
-            safe = torch.where(has_owner & (pivot_own.abs() > 0), pivot_own,
-                               1.0)
-            contrib = torch.where(has_owner[:, None],
-                                  piv_row_own / safe[:, None], 0.0)
-            extra = []
-            if use_j:
-                j_own = torch.where(owner_rows, basis_l, 0).sum(1)
-                if pack_int:
-                    extra.append(j_own.to(dt))
-            if bounded:
-                extra += [
-                    torch.where(owner_rows, t_lo, 0.0).sum(1),
-                    torch.where(owner_rows, torch.where(
-                        torch.isfinite(t_hi), t_hi, 0.0), 0.0).sum(1),
-                    (owner_rows & ~torch.isfinite(t_hi)).to(dt).sum(1)]
-            packed = psum(torch.cat([contrib] + [e[:, None] for e in extra],
-                                    dim=1))
-            piv_row = packed[:, :N1]
-            # The clamped step theta = max(rhs_r, 0)/pivot — see
-            # ops/tableau.pivot_update.
-            piv_row[:, -1] = torch.clamp_min(piv_row[:, -1], 0.0)
-            if use_j:
-                j_out = (packed[:, N1].long() if pack_int
-                         else psum(j_own.clone()))
-            if bounded:
-                k = N1 + int(pack_int)
-                t_lo_own = packed[:, k]
-                t_hi_own = torch.where(packed[:, k + 2] > 0, inf,
-                                       packed[:, k + 1])
-                leave_up = t_hi_own < t_lo_own
-                step = torch.minimum(torch.minimum(t_lo_own, t_hi_own),
-                                     theta_safe)
-                step = torch.where(torch.isfinite(step), step, 0.0)
-
-            # ---- decide action per instance ---------------------------- #
-            want_stop = (optimal | unbounded) & live
-            p1_done = want_stop & in_p1
-            infeasible = p1_done & (-obj[:, -1] > feas_tol * b_scale)
-            to_p2 = p1_done & ~infeasible
-            finish_p2 = want_stop & ~in_p1
-            status = torch.where(
-                infeasible, STATUS_INFEASIBLE,
-                torch.where(finish_p2 & optimal, STATUS_OPTIMAL,
-                            torch.where(finish_p2 & unbounded,
-                                        STATUS_UNBOUNDED, status)))
-            active = live & ~want_stop
-            if bounded:
-                do_flip_now = active & do_flip
-                do_pivot_now = active & ~do_flip
-            else:
-                do_pivot_now = active
-
-            # ---- Devex weights (replicated; pre-pivot pivot row) ------- #
-            if devex:
-                w_s = w.gather(1, sl)
-                alpha = piv_row[:, :-1]
-                w_new = torch.maximum(w, (alpha * alpha) * w_s)
-                w_new = torch.where(col_idx == j_out[:, None],
-                                    torch.clamp_min(w_s, 1.0), w_new)
-                w_new = torch.where(col_idx == sl, 1.0, w_new)
-                w_new = torch.where(w_new.amax(dim=1, keepdim=True) > 1e8,
-                                    1.0, w_new)
-                w = torch.where(do_pivot_now[:, None], w_new, w)
-
-            # ---- rank-1 update in place, masked (no communication) ----- #
-            # A masked instance's column is scaled to 0 and its row to 0,
-            # so its rows stay as they are; then the owner row is written.
-            col_m = col_loc * do_pivot_now.to(dt)[:, None]
-            piv_m = torch.where(do_pivot_now[:, None], piv_row, 0.0)
-            if Bl == 1:
-                T[0].addr_(col_m[0], piv_m[0], alpha=-1)
-            else:
-                T.baddbmm_(col_m[:, :, None], piv_m[:, None, :], alpha=-1)
-            own_now = (do_pivot_now & has_owner)[:, None, None]
-            T.scatter_(1, r_idx, torch.where(own_now, piv_row[:, None, :],
-                                             T.gather(1, r_idx)))
-            own_piv = do_pivot_now[:, None] & owner_rows
-            if bounded:
-                # Explicit bounded RHS (see the JAX function).
-                z_old = -obj[:, -1]
-                x_enter = torch.where(s_from_up, ub_s_safe - step, step)
-                rhs_piv = rhs_loc - dd_loc * step[:, None]
-                rhs_piv = torch.where(owner_rows, x_enter[:, None], rhs_piv)
-                ub_B_new = ub_ext.gather(
-                    1, torch.where(owner_rows, sl, basis_l))
-                rhs_piv = torch.minimum(torch.clamp_min(rhs_piv, 0.0),
-                                        ub_B_new)
-                rhs_flip = torch.minimum(torch.clamp_min(
-                    rhs_loc - dd_loc * ub_s_safe[:, None], 0.0), ub_B_loc)
-                T[:, :, -1] = torch.where(
-                    do_pivot_now[:, None], rhs_piv,
-                    torch.where(do_flip_now[:, None], rhs_flip, rhs_loc))
-            basis = torch.where(own_piv, s[:, None].to(i32), basis)
-
-            # ---- objective row (replicated) ---------------------------- #
-            obj_new = obj - obj.gather(1, sl) * piv_row
-            if bounded:
-                z_piv = z_old + sigma * rc_s * step
-                z_flip = z_old + sigma * rc_s * ub_s_safe
-                obj = torch.where(do_pivot_now[:, None], obj_new, obj)
-                obj[:, -1] = torch.where(
-                    do_pivot_now, -z_piv,
-                    torch.where(do_flip_now, -z_flip, obj[:, -1]))
-                # at-upper bookkeeping: the leaving column exits at its
-                # bound; the entering or flipping column toggles.
-                jout_hot = col_idx == j_out[:, None]
-                s_hot = col_idx == sl
-                at_up_piv = torch.where(jout_hot, leave_up[:, None], at_upper)
-                at_up_piv = at_up_piv & ~s_hot
-                at_upper = torch.where(
-                    do_pivot_now[:, None], at_up_piv,
-                    torch.where(do_flip_now[:, None], at_upper ^ s_hot,
-                                at_upper))
-            else:
-                obj = torch.where(active[:, None], obj_new, obj)
-
-            # ---- objective progress (stall-gated Bland) ---------------- #
-            obj_val = -obj[:, -1]
-            improved = obj_val < best_obj - tol * (1.0 + best_obj.abs())
-            best_obj = torch.minimum(best_obj, obj_val)
-            no_imp = torch.where(improved, 0, no_imp + active.to(i32))
-
-            # ---- phase flip: the phase-2 objective, priced out; masked by
-            # to_p2 and run by every rank while any may flip ------------- #
-            if any_p1:
-                priced = reprice(T, basis, obj_row_p2)
-                if bounded:
-                    priced[:, -1] -= cost_at_upper(obj_row_p2, at_upper)
-                obj = torch.where(to_p2[:, None], priced, obj)
-                phase = torch.where(to_p2, 2, phase)
-            best_obj = torch.where(to_p2, inf, best_obj)
-            no_imp = torch.where(to_p2, 0, no_imp)
-            if devex:
-                w = torch.where(to_p2[:, None], 1.0, w)
-            iters = iters + live.any()
-        iters_h += n_steps
-        running = status == RUNNING
-        any_run, any_p1 = torch.stack(
-            [running.any(), (running & (phase == 1)).any()]).tolist()
+                    since_ref += 1
+            lp.run(_sharded_chunk, n_steps, tuple(rf_steps), bool(any_p1))
+            iters_h += n_steps
+            running = lp.state["status"] == RUNNING
+            any_run, any_p1 = torch.stack(
+                [running.any(),
+                 (running & (lp.state["phase"] == 1)).any()]).tolist()
+    T, basis, obj = state["T"], state["basis"], state["obj"]
+    status, phase, at_upper = state["status"], state["phase"], \
+        state["at_upper"]
     status = torch.where(status == RUNNING, STATUS_ITERATION_LIMIT, status)
 
     # Final polish: Newton-refine x_B and recompute the objective value.
-    T[:, :, -1] = newton_rhs(T, basis,
-                             at_upper_vec(at_upper) if bounded else None)
+    T[:, :, -1] = _newton_rhs(cs, rg, n_row, T, basis,
+                              _at_upper_vec(cs, at_upper) if bounded
+                              else None)
     raw_obj = torch.where((phase == 1)[:, None], obj_row_p1, obj_row_p2)
     cB = torch.where(rv, raw_obj.gather(1, basis.long()), 0.0)
-    z_min = psum((cB * T[:, :, -1]).sum(1))
+    z_min = _reduce((cB * T[:, :, -1]).sum(1), _SUM, rg)
     if bounded:
-        z_min = z_min + cost_at_upper(raw_obj, at_upper)
+        z_min = z_min + _cost_at_upper(cs, raw_obj, at_upper)
     obj[:, -1] = -z_min
-    return T, basis, obj, status, int(iters), at_upper
+    return T, basis, obj, status, int(state["iters"]), at_upper
 
 
 def solve_tableau_sharded(T_rows, basis, obj, col_mask_p1, col_mask_p2,

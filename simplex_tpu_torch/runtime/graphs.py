@@ -1,0 +1,376 @@
+"""One CUDA graph a chunk of a solve loop, replayed.
+
+This is the port's counterpart of the JAX package's compiled
+``lax.while_loop``.  Every solve loop of the port runs in chunks of device
+steps with one host read of its state between two chunks
+(``ops/tableau.py``, ``ops/batched.py``, ``models/revised.py``,
+``models/pdhg.py``, ``parallel/sharded.py``).  Each loop writes its chunk
+once, as a function of its state tensors (the chunk body), and runs it
+through a :class:`Loop`:
+
+* on a CPU tensor, the body runs eagerly: that is the device the caller
+  chose, and the tests run that way;
+* on a CUDA tensor, the chunk is one captured CUDA graph, replayed.  The
+  graph is made the first time its cache key is met: the body runs once
+  eagerly on a side stream as that chunk's real work (it builds and loads
+  the kernels, gives cuBLAS and cuSOLVER their workspaces and makes NCCL's
+  communicator exist, so nothing is first done inside the capture), then it
+  is captured.  A capture or replay that fails raises; nothing falls back
+  to the eager chunk.  The private switch ``_EAGER`` runs the eager chunk
+  on the card, for the checks that hold the two bit-equal; no entry point
+  reads it.
+
+The graph path keeps each cache entry's own static buffers: the loop state
+(the tensors the chunks update) and the read-only inputs the body reads.
+A solve copies both in once, replays the entry's graphs, takes its
+decisions between two replays by writing into the same buffers in place,
+and at the end copies the state back out into its own tensors.  A graph
+ends with in-place copies of the new state into the buffers, so replay
+k+1 reads what replay k wrote.  The arithmetic, the kernels and the order
+of the launches are those of the eager chunk, so a graph solve is
+bit-equal to an eager one.
+
+The cache key is the loop's name, the shapes, strides and dtypes of every
+buffer, the device, and the Python values the body reads (the ``static``
+tuple: tolerances, caps, flags, the backend); within an entry, each chunk
+variant (its length, and what else the loop passes to ``run``) is one
+graph.  The graphs of one entry share one memory pool (they never run at
+the same time, and every value they leave behind is in the static
+buffers).  The cache holds at most :data:`MAX_ENTRIES` entries and
+:data:`MAX_BYTES` bytes of buffers and pools on the card; the least
+recently used entries go first.  A solve whose buffers alone exceed the
+budget, or whose entry another solve is using, runs on a private entry
+whose buffers are its own tensors (nothing is copied) and which is dropped
+when the solve ends.
+
+Launch counts: a capture enqueues kernels without running them, so the
+wrappers' counters (``LAUNCHES`` of K1, K2, K3 and K4) are set back after
+it, and every replay adds the launches its capture enqueued.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+# The most entries, and the most bytes of static buffers and graph pools on
+# the card, that the cache keeps between solves.
+MAX_ENTRIES = 8
+MAX_BYTES = 4 << 30
+
+# Private: True runs every chunk eagerly on the card (the checks of
+# graph against eager set it; no entry point and no environment variable
+# reads it).
+_EAGER = False
+
+# Chunks run since the counters were last reset to 0: replays of a graph,
+# captures (each after its chunk ran eagerly as the warm-up), and eager
+# chunks (on the CPU, under _EAGER, and the warm-ups).
+REPLAYS = 0
+CAPTURES = 0
+EAGER_CHUNKS = 0
+
+_CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
+_LOCK = threading.Lock()
+
+
+def _counters():
+    """The kernel wrappers' launch counters, as (module, name) pairs."""
+    from ..ops import batched_kernel, pivot_kernel, stream_kernel
+
+    return ((pivot_kernel, "LAUNCHES"), (batched_kernel, "LAUNCHES"),
+            (batched_kernel, "LAUNCHES_K3"), (stream_kernel, "LAUNCHES"))
+
+
+def _read_counters():
+    return [getattr(mod, name) for mod, name in _counters()]
+
+
+def _add_counters(counts):
+    for (mod, name), n in zip(_counters(), counts):
+        setattr(mod, name, getattr(mod, name) + n)
+
+
+def _store(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
+    """Write a chunk's new values into the state tensors, in place."""
+    for k, v in new.items():
+        if v is not state[k]:
+            state[k].copy_(v)
+
+
+class _CudaGraph:
+    """One captured chunk on the card: its warm-up, its capture into the
+    entry's memory pool and its replay."""
+
+    def __init__(self, device, pool):
+        self.device = device
+        self.pool = pool
+        self.graph = None
+
+    def warm_up(self, fn: Callable[[], None]):
+        """Run ``fn`` eagerly on the side stream that captures, ordered
+        after the current stream's work and before its next (so cuBLAS's
+        workspace for that stream exists before the capture)."""
+        current = torch.cuda.current_stream(self.device)
+        side = _side_stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            fn()
+        current.wait_stream(side)
+
+    def capture(self, fn: Callable[[], None]) -> int:
+        """Capture ``fn`` (it does not run).  Returns the bytes the capture
+        added to the allocator's reserve (the pool's growth)."""
+        current = torch.cuda.current_stream(self.device)
+        before = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        side = _side_stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            # thread_local: another thread's allocations (the certify
+            # worker, a server thread) do not break this capture.
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        self.graph = graph
+        return torch.cuda.memory_reserved(self.device) - before
+
+    def replay(self):
+        self.graph.replay()
+
+
+_SIDE = threading.local()
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    """One side stream a device and thread for every warm-up and capture,
+    as ``torch.cuda.graph`` keeps one capture stream (a thread's capture
+    never shares its stream with another thread's work)."""
+    streams = _SIDE.__dict__.setdefault("streams", {})
+    key = str(device)
+    if key not in streams:
+        streams[key] = torch.cuda.Stream(device)
+    return streams[key]
+
+
+def _new_graph(device, pool):
+    """The graph object of one chunk variant (a stub in the CPU tests)."""
+    return _CudaGraph(device, pool)
+
+
+def _new_pool(device):
+    """The memory pool the graphs of one entry share."""
+    with torch.cuda.device(device):
+        return torch.cuda.graph_pool_handle()
+
+
+def _nbytes(tensors: Dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def _signature(tensors: Dict[str, torch.Tensor]):
+    return tuple((k, tuple(v.shape), tuple(v.stride()), v.dtype)
+                 for k, v in sorted(tensors.items()))
+
+
+class _Entry:
+    """One loop at one set of shapes, dtypes and static values: the static
+    buffers, the shared pool and one graph a chunk variant."""
+
+    def __init__(self, key, state, consts, device, private=False):
+        self.key = key
+        self.device = device
+        self.private = private
+        if private:
+            # Serves one solve and is dropped: its buffers are the solve's
+            # own tensors, with nothing to copy in or out.
+            self.state, self.consts = dict(state), dict(consts)
+        else:
+            # empty_like keeps each tensor's strides, so the body sees the
+            # layout the eager solve has.
+            self.state = {k: torch.empty_like(v) for k, v in state.items()}
+            self.consts = {k: torch.empty_like(v) for k, v in consts.items()}
+        self.buffer_bytes = _nbytes(state) + _nbytes(consts)
+        self.pool_bytes = 0
+        self.capture_s = 0.0
+        self.pool = None
+        self.graphs = {}            # variant -> (graph, launches a replay)
+        self.busy = False
+
+    @property
+    def nbytes(self) -> int:
+        return self.buffer_bytes + self.pool_bytes
+
+    def load(self, state, consts):
+        for mine, theirs in ((self.state, state), (self.consts, consts)):
+            for k, v in theirs.items():
+                mine[k].copy_(v)
+
+    def run(self, body, static, args):
+        global REPLAYS, CAPTURES, EAGER_CHUNKS
+        hit = self.graphs.get(args)
+        if hit is not None:
+            graph, launches = hit
+            graph.replay()
+            _add_counters(launches)
+            REPLAYS += 1
+            return
+
+        def chunk():
+            _store(self.state, body(self.state, self.consts, static, *args))
+
+        if self.pool is None:
+            self.pool = _new_pool(self.device)
+        graph = _new_graph(self.device, self.pool)
+        # The warm-up is this chunk's real work, eager and counted.
+        graph.warm_up(chunk)
+        EAGER_CHUNKS += 1
+        before = _read_counters()
+        t0 = time.perf_counter()
+        try:
+            self.pool_bytes += max(graph.capture(chunk), 0)
+        finally:
+            after = _read_counters()
+            # The capture ran nothing: set the counters back.
+            _add_counters([b - a for a, b in zip(after, before)])
+        self.capture_s += time.perf_counter() - t0
+        self.graphs[args] = (graph, [a - b for a, b in zip(after, before)])
+        CAPTURES += 1
+
+
+def _acquire(key, state, consts, device) -> _Entry:
+    """The cache's entry for ``key``, marked busy and filled with the
+    solve's tensors; a private entry where the cached one is in use."""
+    with _LOCK:
+        entry = _CACHE.get(key)
+        if entry is not None and not entry.busy:
+            _CACHE.move_to_end(key)
+        elif entry is None and _nbytes(state) + _nbytes(consts) <= MAX_BYTES:
+            entry = _CACHE[key] = _Entry(key, state, consts, device)
+        else:
+            entry = _Entry(key, state, consts, device, private=True)
+        entry.busy = True
+    if not entry.private:
+        entry.load(state, consts)
+    return entry
+
+
+def _release(entry: _Entry):
+    with _LOCK:
+        entry.busy = False
+        _evict()
+
+
+def _evict():
+    """Drop the least recently used idle entries until the cache holds at
+    most MAX_ENTRIES entries and MAX_BYTES bytes."""
+    for key in [k for k, e in _CACHE.items()
+                if not e.busy and e.nbytes > MAX_BYTES]:
+        del _CACHE[key]
+
+    def over():
+        return (len(_CACHE) > MAX_ENTRIES
+                or sum(e.nbytes for e in _CACHE.values()) > MAX_BYTES)
+
+    for key in list(_CACHE):
+        if not over():
+            break
+        if not _CACHE[key].busy:
+            del _CACHE[key]
+
+
+def clear():
+    """Drop every idle cache entry (before a process group that the
+    sharded loop's graphs captured is destroyed, for instance)."""
+    with _LOCK:
+        for key in [k for k, e in _CACHE.items() if not e.busy]:
+            del _CACHE[key]
+
+
+def stats():
+    """One record a cache entry: its loop, its graphs, their capture
+    seconds and the bytes it holds on the card (buffers and pool)."""
+    with _LOCK:
+        return [{"loop": key[0], "graphs": len(e.graphs),
+                 "capture_s": e.capture_s, "buffer_bytes": e.buffer_bytes,
+                 "pool_bytes": e.pool_bytes} for key, e in _CACHE.items()]
+
+
+def cache_bytes() -> int:
+    """The bytes the cache holds on the card."""
+    with _LOCK:
+        return sum(e.nbytes for e in _CACHE.values())
+
+
+def _graphed(device: torch.device) -> bool:
+    return device.type == "cuda" and not _EAGER
+
+
+class Loop:
+    """One solve loop's state, run a chunk at a time.
+
+    ``name`` names the loop; ``state`` its tensors that the chunks update
+    (the loop takes them over: at the end they hold the final state);
+    ``consts`` the read-only tensors the body reads; ``static`` a hashable
+    tuple of the Python values the body reads.  Use as a context manager::
+
+        with Loop("tableau.phase", state, consts, static) as lp:
+            lp.run(body, n_steps)       # one chunk
+            lp.state["T"]               # the state between two chunks
+
+    ``body(state, consts, static, *args)`` returns the new values of some
+    state keys (it may also update state tensors in place); it must not
+    read the host's clock, the device's results or any Python value that
+    is not in ``static`` or ``args``.  ``args`` (hashable) select the
+    chunk variant, such as its length.  Between two chunks the caller
+    reads and writes ``lp.state`` in place only.
+    """
+
+    def __init__(self, name: str, state: Dict[str, torch.Tensor],
+                 consts: Dict[str, torch.Tensor], static: tuple = ()):
+        self.name = name
+        self.static = static
+        self._own = state
+        self._consts = consts
+        first = next(iter(state.values()))
+        self.device = first.device
+        self._entry: Optional[_Entry] = None
+        self.state = state
+        self.consts = consts
+
+    def __enter__(self) -> "Loop":
+        if _graphed(self.device):
+            key = (self.name, self.static, _signature(self._own),
+                   _signature(self._consts), str(self.device))
+            self._entry = _acquire(key, self._own, self._consts, self.device)
+            self.state = self._entry.state
+            self.consts = self._entry.consts
+        return self
+
+    def run(self, body, *args):
+        """One chunk of the loop."""
+        global EAGER_CHUNKS
+        if self._entry is not None:
+            self._entry.run(body, self.static, args)
+            return
+        _store(self.state, body(self.state, self.consts, self.static, *args))
+        EAGER_CHUNKS += 1
+
+    def __exit__(self, exc_type, *exc):
+        entry, self._entry = self._entry, None
+        if entry is None:
+            return False
+        try:
+            if exc_type is None:
+                _store(self._own, entry.state)
+        finally:
+            self.state, self.consts = self._own, self._consts
+            _release(entry)
+        return False

@@ -35,6 +35,7 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.models.pdhg\n"
             "import simplex_tpu_torch.models.crossover\n"
             "import simplex_tpu_torch.runtime.staging\n"
+            "import simplex_tpu_torch.runtime.graphs\n"
             "import simplex_tpu_torch.parallel.sharded\n"
             "import simplex_tpu_torch.parallel.distributed\n"
             "import simplex_tpu_torch.utils.sharded_bench\n"
