@@ -5,8 +5,10 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
 
-1. environment: the card (``nvidia-smi``), torch and CUDA versions; no
-   CUDA device is a failure (there is no CPU path here);
+1. environment: the card (``nvidia-smi``), torch and CUDA versions and
+   the driver's; no CUDA device is a failure (there is no CPU path here);
+   one empty ``torch.profiler`` session, so that the profiler reports
+   every pass of the WHILE nodes of the graphs made later;
 2. build: compiles the port's CUDA kernels from ``simplex_tpu_torch/csrc``;
 3. K1 (``csrc/pivot_update.cu``, on the streaming skeleton
    ``csrc/stream_common.cuh`` it shares with K4) against its plain PyTorch
@@ -154,6 +156,16 @@ and, for phases 5, 14, 17 and 20, both busy shares under
 ``torch.profiler`` (``[graphs-busy]``).  After each of those phases the
 graph cache logs its entries, their capture seconds and their bytes on the
 card (``[graphs-cache]``).
+
+A chunk's steps stop at the loop's verdict, as the reference's
+``lax.while_loop`` does: in a replayed graph the steps after a chunk's
+first are the body of a WHILE conditional node, and no kernel runs after
+the step that gave the verdict.  Phases 5, 8, 11, 14 (b) and 16 log each
+loop's launches (the revised engine's steps) against that bound beside
+its seconds both ways and the figures from before (``[loop-exit]``), and
+fail past it: K1 at most one launch a pivot plus one a chunk (phases 5
+and 16), K2 and K3 exactly one an iteration (phases 8 and 11), the
+revised engine at most its iterations plus one step a chunk (phase 14 b).
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
@@ -484,13 +496,16 @@ def phase_solve(torch, pt, pivot_kernel, gpu, size=2048):
     warm = pt.solve_lp(lp, cfg)
     check(warm.status == 0, f"warm-up solve status {warm.status}")
 
+    from simplex_tpu_torch.ops import tableau
+
     pivot_kernel.LAUNCHES = 0
+    tableau.STATE_READS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = pt.solve_lp(lp, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pivot_kernel.LAUNCHES
+    launches, chunks = pivot_kernel.LAUNCHES, tableau.STATE_READS
 
     check(res.status == 0, f"{size} solve status {res.status}")
     check(res.x is not None and res.x.shape == (size,)
@@ -514,8 +529,6 @@ def phase_solve(torch, pt, pivot_kernel, gpu, size=2048):
     # The chunks as replayed graphs against the eager chunks: the loop's
     # tableau, basis, status and iterations bit for bit, K1's launches
     # equal to the timed run's.
-    from simplex_tpu_torch.ops import tableau
-
     def run():
         pivot_kernel.LAUNCHES = 0
         with _Timed(tableau, "solve_tableau", torch, keep=True) as loop:
@@ -532,6 +545,12 @@ def phase_solve(torch, pt, pivot_kernel, gpu, size=2048):
         secs = times[kind]["solve_tableau"]
         log(f"[graphs] phase 5 solve_tableau {kind} on {gpu}: {secs!r} s = "
             f"{[out['iters'] / t for t in secs]!r} pivots/s")
+    # A chunk stops after the step that gives its verdict: one K1 launch a
+    # pivot and one a chunk.
+    check(not res.escalated, "the 2048 solve escalated")
+    _loop_exit("phase 5", f"K1 launches for {res.nit} pivots in {chunks} "
+               "chunks", launches, res.nit + chunks,
+               {k: v["solve_tableau"] for k, v in times.items()}, gpu)
     args, kw, _ = loop_args(tableau, lambda: pt.solve_lp(lp, cfg))
     _busy(torch, "phase 5 solve_tableau", lambda: tableau.solve_tableau(
         *args, **kw), gpu)
@@ -959,7 +978,7 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
     t0 = time.perf_counter()
     res = solver.solve_arrays(c, A, b, ops, maximize=True)
     wall = time.perf_counter() - t0
-    launches_full = bk.LAUNCHES
+    launches_full, nit_full = bk.LAUNCHES, res.nit
 
     check(res.status.shape == (B,) and bool(np.all(res.status == 0)),
           f"{int(np.sum(res.status != 0))} of {B} instances not optimal")
@@ -995,6 +1014,7 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
     res = solver.solve_arrays(c, A, b, ops, maximize=maximize)
     wall = time.perf_counter() - t0
     check(bk.LAUNCHES > before, "the mixed batch launched K2 no time")
+    mixed_launches, mixed_nit = bk.LAUNCHES - before, res.nit
     counts = {}
     for i in range(Bm):
         st, z = _highs(c[i], A[i], b[i], ops[i], bool(maximize[i]))
@@ -1009,16 +1029,28 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
         f"on the optimal ones, escalated={res.n_escalated}, wall {wall!r} s, "
         f"pivots mean {float(res.pivots.mean())!r} max "
         f"{int(res.pivots.max())}, K2 launches {bk.LAUNCHES - before}")
-    _versus(torch, "phase 8, the 1024 x (30x50) mixed batch",
-            _batch_run(torch, bk, solver, (c, A, b, ops),
-                       dict(maximize=maximize)), gpu)
+    mixed_times, _ = _versus(torch, "phase 8, the 1024 x (30x50) mixed "
+                             "batch", _batch_run(torch, bk, solver,
+                                                 (c, A, b, ops),
+                                                 dict(maximize=maximize)),
+                             gpu)
     c, A, b, ops = bench_batch(B)
-    _, out = _versus(torch, f"phase 8, the {B} x (30x50) batch",
-                     _batch_run(torch, bk, solver, (c, A, b, ops),
-                                dict(maximize=True)), gpu)
+    times, out = _versus(torch, f"phase 8, the {B} x (30x50) batch",
+                         _batch_run(torch, bk, solver, (c, A, b, ops),
+                                    dict(maximize=True)), gpu)
     check(out["K2"] == launches_full and out["K3"] == 0,
           f"K2 launches {out['K2']} in the graph and eager runs, "
           f"{launches_full} in the timed run")
+    # The steps stop at the first with no instance running (the
+    # reference's icond): one K2 launch an iteration.
+    _loop_exit("phase 8", f"K2 launches for {nit_full} iterations",
+               launches_full, nit_full,
+               {k: v["_solve_loop"] for k, v in times.items()}, gpu,
+               exact=True)
+    _loop_exit("phase 8 mixed", f"K2 launches for {mixed_nit} iterations "
+               "of the two-phase loop (1024 mixed)", mixed_launches,
+               mixed_nit, {k: v["_solve_loop"] for k, v in
+                           mixed_times.items()}, gpu, exact=True)
     return launches_full
 
 
@@ -1412,7 +1444,7 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
     t0 = time.perf_counter()
     res = solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
     wall = time.perf_counter() - t0
-    k3_launches, k2_launches = bk.LAUNCHES_K3, bk.LAUNCHES
+    k3_launches, k2_launches, nit_full = bk.LAUNCHES_K3, bk.LAUNCHES, res.nit
 
     check(res.status.shape == (B,) and bool(np.all(res.status == 0)),
           f"{int(np.sum(res.status != 0))} of {B} bounded instances not "
@@ -1457,6 +1489,7 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
     res = solver.solve_arrays(c, A, b, ops, maximize=False, ub=ub)
     wall = time.perf_counter() - t0
     check(bk.LAUNCHES_K3 > 0, "the mixed bounded batch launched K3 no time")
+    mixed_launches, mixed_nit = bk.LAUNCHES_K3, res.nit
     counts = {}
     for i in range(Bm):
         st, z = _highs_bounded(c[i], A[i], b[i], ops, False, np.zeros(50),
@@ -1473,16 +1506,27 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
         f"the gate on the optimal ones, escalated={res.n_escalated}, wall "
         f"{wall!r} s, pivots mean {float(res.pivots.mean())!r} max "
         f"{int(res.pivots.max())}, K3 launches {bk.LAUNCHES_K3}")
-    _versus(torch, "phase 11, the 1024 x (30x50) mixed bounded batch",
-            _batch_run(torch, bk, solver, (c, A, b, ops),
-                       dict(maximize=False, ub=ub)), gpu)
+    mixed_times, _ = _versus(
+        torch, "phase 11, the 1024 x (30x50) mixed bounded batch",
+        _batch_run(torch, bk, solver, (c, A, b, ops),
+                   dict(maximize=False, ub=ub)), gpu)
     cB, AB, bB, opsB, ubB = bench_bounded_batch(B)
-    _, out = _versus(torch, f"phase 11, the bounded {B} x (30x50) batch",
-                     _batch_run(torch, bk, solver, (cB, AB, bB, opsB),
-                                dict(maximize=True, ub=ubB)), gpu)
+    times, out = _versus(torch, f"phase 11, the bounded {B} x (30x50) "
+                         "batch", _batch_run(torch, bk, solver,
+                                             (cB, AB, bB, opsB),
+                                             dict(maximize=True, ub=ubB)),
+                         gpu)
     check(out["K3"] == k3_launches and out["K2"] == 0,
           f"K3 launches {out['K3']} in the graph and eager runs, "
           f"{k3_launches} in the timed run")
+    _loop_exit("phase 11", f"K3 launches for {nit_full} iterations",
+               k3_launches, nit_full,
+               {k: v["_solve_loop"] for k, v in times.items()}, gpu,
+               exact=True)
+    _loop_exit("phase 11 mixed", f"K3 launches for {mixed_nit} iterations "
+               "of the two-phase loop (1024 mixed)", mixed_launches,
+               mixed_nit, {k: v["_solve_loop"] for k, v in
+                           mixed_times.items()}, gpu, exact=True)
 
     # The sweep: shapes and bound kinds mixed; the 224 LPs with boxes keep
     # finite upper bounds (K3), the 32 taller ones without boxes form a
@@ -1788,14 +1832,17 @@ def phase_revised(torch, pt, gpu, m=REVISED_M, n=REVISED_N):
     solver.solve(mps.generate_netlib_style(1, m=m // 10, n=n // 10,
                                            density=0.03))
 
+    from simplex_tpu_torch.runtime import graphs
+
     revised.STATE_READS = 0
+    graphs.STEPS = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solver.solve(lp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    reads = revised.STATE_READS
+    reads, steps_run = revised.STATE_READS, graphs.STEPS
     peak = torch.cuda.max_memory_allocated()
     check(res.status == 0, f"{m}x{n} revised status {res.status} "
           f"({res.message}, {res.nit} pivots)")
@@ -1827,9 +1874,13 @@ def phase_revised(torch, pt, gpu, m=REVISED_M, n=REVISED_N):
                  "x": r.x, "nit": r.nit},
                 {"solve": t, "pivots_per_s": r.nit / t})
 
-    _versus(torch, f"phase 14 (b), the revised {m}x{n} solve", run, gpu,
-            order="GE")
-    from simplex_tpu_torch.runtime import graphs
+    times, _ = _versus(torch, f"phase 14 (b), the revised {m}x{n} solve",
+                       run, gpu, order="GE")
+    # A phase stops after its verdict step: its iterations plus at most
+    # one step a chunk.
+    _loop_exit("phase 14 (b)", f"steps for {res.nit} iterations in {reads} "
+               "chunks", steps_run, res.nit + reads,
+               {k: v["solve"] for k, v in times.items()}, gpu)
 
     for kind in ("eager", "graph"):
         graphs._EAGER = kind == "eager"
@@ -2083,6 +2134,40 @@ def _graph_stats(label):
         f"{graphs.EAGER_CHUNKS}; entries {json.dumps(stats)}")
 
 
+# Each loop's launches (the revised engine's steps) and seconds before its
+# chunks stopped at the verdict: PERF.md sections 5-6, PR 10's chip runs
+# (NVIDIA H100 80GB HBM3, 700.00 W), when every chunk ran its full length.
+BEFORE_EXIT = {
+    "phase 5": "1,439 K1 launches for 1,115 pivots; solve_tableau "
+               "0.275-0.327 s through graphs, 1.26-2.34 s eager",
+    "phase 8": "64 K2 launches for 28 iterations; the loop 0.0116-0.0135 s "
+               "through graphs, 0.0243-0.0608 s eager",
+    "phase 11": "64 K3 launches for 31 iterations; the loop 0.0129-0.0150 "
+                "s through graphs, 0.0260-0.0527 s eager",
+    "phase 14 (b)": "every chunk at its full length, up to 63 masked steps "
+                    "a phase; 2,486-2,699 pivots/s through graphs, 330-450 "
+                    "eager",
+    "phase 16 (a)": "259 K1 launches for 148 pivots; the device loop "
+                    "0.093-0.102 s through graphs, 0.290-0.553 s eager",
+    "phase 16 (b)": "390 K1 launches over the shrink and the increase",
+}
+
+
+def _loop_exit(label, what, count, bound, times, gpu, exact=False):
+    """A loop's launches (or steps) against the bound its exit at the
+    verdict sets, with its seconds through graphs and eager and the figures
+    from before the exit; the run fails past the bound (off it, where
+    ``exact``)."""
+    ok = count == bound if exact else count <= bound
+    check(ok, f"{label}: {count} {what}, bound {bound}"
+          f"{' exactly' if exact else ''}")
+    log(f"[loop-exit] {label} on {gpu}: {count} {what}, bound {bound}"
+        f"{' (exact)' if exact else ''}; seconds through graphs "
+        f"{times['graph']}, eager {times['eager']}; before the loops "
+        f"stopped at the verdict (PERF.md, PR 10): "
+        f"{BEFORE_EXIT.get(label, 'no count recorded')}")
+
+
 def phase_reoptimize(torch, pt, pivot_kernel, gpu, basis, size=2048):
     """Phase 16 (a): the dual reoptimizer on phase 5's LP after an RHS
     shrink, from phase 5's basis."""
@@ -2147,10 +2232,13 @@ def phase_reoptimize(torch, pt, pivot_kernel, gpu, basis, size=2048):
                  "x": r.x, "K1": pivot_kernel.LAUNCHES},
                 {"device_loop": lp_.seconds()})
 
-    _, out = _versus(torch, "phase 16 (a), the 2048x2048 float64 "
-                     "reoptimize", run, gpu, order="EGEG")
+    times, out = _versus(torch, "phase 16 (a), the 2048x2048 float64 "
+                         "reoptimize", run, gpu, order="EGEG")
     check(out["K1"] == launches, f"K1 launches {out['K1']} in the graph and "
           f"eager runs, {launches} in the first")
+    _loop_exit("phase 16 (a)", f"K1 launches for {res.nit} dual pivots in "
+               f"{reads} chunks", launches, res.nit + reads,
+               {k: v["device_loop"] for k, v in times.items()}, gpu)
     return launches
 
 
@@ -2187,6 +2275,7 @@ def phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu, m=384, n=256):
     for name, b2 in (("shrink", shrink), ("increase", grow)):
         lp2 = pt.LinearProgram(b=b2, **kw)
         pivot_kernel.LAUNCHES = 0
+        tableau.STATE_READS = 0
         with _Timed(tableau, "solve_tableau_dual_bounded", torch) as loop, \
                 _Timed(dense, "solve_lp") as cold:
             t0 = time.perf_counter()
@@ -2194,7 +2283,7 @@ def phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu, m=384, n=256):
                                 at_upper=parent.at_upper)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = pivot_kernel.LAUNCHES
+        launches, reads = pivot_kernel.LAUNCHES, tableau.STATE_READS
         total += launches
         check(len(loop.calls) == 1 and not cold.calls,
               f"bounded {name}: the dual loop ran {len(loop.calls)} times, "
@@ -2226,8 +2315,12 @@ def phase_reoptimize_bounded(torch, pt, pivot_kernel, gpu, m=384, n=256):
                      "status": status, "iters": iters, "x": r.x},
                     {"device_loop": lp_.seconds()})
 
-        _versus(torch, f"phase 16 (b), the bounded {name} reoptimize", run,
-                gpu, order="EG")
+        times, _ = _versus(torch, f"phase 16 (b), the bounded {name} "
+                           "reoptimize", run, gpu, order="EG")
+        _loop_exit("phase 16 (b)", f"K1 launches for {res.nit} dual pivots "
+                   f"in {reads} chunks (RHS {name})", launches,
+                   res.nit + reads,
+                   {k: v["device_loop"] for k, v in times.items()}, gpu)
     return total
 
 
@@ -2999,9 +3092,23 @@ def main():
 
     # 1. environment
     gpu = _gpu_line()
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
     log(f"[env] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
-        f"device(s), python {sys.version.split()[0]}")
+        f"driver {driver.split()[0]}, {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} device(s), python "
+        f"{sys.version.split()[0]}")
+
+    # The profiler's tracing starts before any CUDA graph exists: it
+    # reports every pass of a WHILE node's body (a chunk's steps) only in
+    # graphs instantiated after its first session, and phases 8, 11, 14,
+    # 17, 19 and 20 read the kernels of replayed chunks.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
 
     # 2. build
     t0 = time.perf_counter()

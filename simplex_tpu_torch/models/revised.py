@@ -23,10 +23,11 @@ Differences from the JAX module, all deliberate:
   (the shape of ``ops/tableau.py::_run_phase``), each one CUDA graph on
   the card (``runtime/graphs.py``).  The state stays in
   device tensors, one step is branch-free (the reference's three-way
-  switch stop / flip / pivot becomes updates masked by 0-d flags, and a
-  step whose loop condition no longer holds changes nothing), and the host
-  reads the state (status, iters, no_imp, the objective) once a chunk
-  (counted in ``STATE_READS``).
+  switch stop / flip / pivot becomes updates masked by 0-d flags), a chunk
+  stops at the first step whose loop condition no longer holds (on the
+  card its later steps are a WHILE conditional node), and the host reads
+  the state (status, iters, no_imp, the objective) once a chunk (counted
+  in ``STATE_READS``).
 * The refactor counter ``since`` lives on the host.  It counts loop
   iterations, and every step of a chunk that starts with the loop running
   is one until the loop stops, after which the counter no longer matters.
@@ -111,8 +112,9 @@ def _objective(cs, basis, x_B, at_upper):
 def _revised_chunk(st, cs, static, n_steps: int):
     """``n_steps`` steps of :func:`_run_phase_revised`'s loop, the chunk
     body that ``runtime/graphs.py`` runs eagerly or replays as one CUDA
-    graph.  Returns the new state; ``B_inv``, ``basis`` and ``at_upper``
-    are updated in place."""
+    graph.  Each step writes its state in place and sets ``go`` to the
+    next step's ``active``, the JAX loop's condition: a step that is not
+    active changes nothing, so the chunk ends there."""
     tol, max_iters, bland_after, stall_limit, devex, in_phase2 = static
     i64 = torch.int64
     inf = math.inf
@@ -122,9 +124,9 @@ def _revised_chunk(st, cs, static, n_steps: int):
     k_run, k_opt, k_unb = cs["k_run"], cs["k_opt"], cs["k_unb"]
     eps = torch.finfo(A_std.dtype).eps
     B_inv, basis, at_upper = st["B_inv"], st["basis"], st["at_upper"]
-    x_B, w, iters, status = st["x_B"], st["w"], st["iters"], st["status"]
-    best_obj, no_imp = st["best_obj"], st["no_imp"]
-    for _ in range(n_steps):
+    for _ in graphs.steps(st, n_steps):
+        x_B, w, iters, status = st["x_B"], st["w"], st["iters"], st["status"]
+        best_obj, no_imp = st["best_obj"], st["no_imp"]
         active = ((status == RUNNING) & (iters < max_iters)
                   & (no_imp < stall_limit))
 
@@ -233,8 +235,10 @@ def _revised_chunk(st, cs, static, n_steps: int):
                              no_imp)
         iters = iters + moved
         status = torch.where(active, new_status, status)
-    return {"x_B": x_B, "w": w, "iters": iters, "status": status,
-            "best_obj": best_obj, "no_imp": no_imp}
+        graphs.store(st, x_B=x_B, w=w, iters=iters, status=status,
+                     best_obj=best_obj, no_imp=no_imp,
+                     go=((status == RUNNING) & (iters < max_iters)
+                         & (no_imp < stall_limit)))
 
 
 def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
@@ -271,7 +275,8 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
              "basis": basis.to(i64).clone(), "at_upper": at_upper.clone(),
              "w": torch.ones((A_std.shape[1],), dtype=dt, device=dev),
              "iters": full(int(iters0), i64), "status": full(RUNNING, i64),
-             "best_obj": full(math.inf, dt), "no_imp": full(0, i64)}
+             "best_obj": full(math.inf, dt), "no_imp": full(0, i64),
+             **graphs.step_state(dev)}
     static = (float(tol), int(max_iters), int(bland_after), stall_limit,
               bool(devex), bool(in_phase2))
 
@@ -281,11 +286,10 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
         st = lp.state
         while True:
             lp.run(_revised_chunk, n_steps)
-            st_, it, ni, obj = torch.stack([
-                st["status"].to(torch.float64), st["iters"].to(torch.float64),
-                st["no_imp"].to(torch.float64),
+            st_, it, ni, obj = lp.read(
+                st["status"], st["iters"], st["no_imp"],
                 _objective(lp.consts, st["basis"], st["x_B"],
-                           st["at_upper"]).to(torch.float64)]).tolist()
+                           st["at_upper"]), dtype=torch.float64)
             STATE_READS += 1
             st_, it, ni = int(st_), int(it), int(ni)
             if not (st_ == RUNNING and it < max_iters and ni < stall_limit):

@@ -16,11 +16,13 @@ Differences from the JAX module, all deliberate:
 * The ``lax.while_loop`` becomes a host loop over chunks of device steps
   (:func:`_batch_chunk`, one replayed CUDA graph on the card:
   ``runtime/graphs.py``), with one host read of the loop state per chunk
-  (``_read``), never one per pivot.  A step taken after every instance has finished is a masked no-op
-  that leaves the tableaus bit-identical, and ``iters`` counts only steps
-  taken while some instance was running (a device counter), so ``iters``
-  and the per-instance ``pivots`` equal the reference's when the
-  trajectories agree.
+  (``Loop.read``), never one per pivot.  A chunk's steps stop at the first
+  step that finds no instance running, the reference's ``icond``: on the
+  card the steps after a chunk's first are the body of a WHILE
+  conditional node of its graph, so K2 or K3 runs once a step of
+  ``iters``.  ``iters`` counts the steps taken while some instance was
+  running (a device counter), so ``iters`` and the per-instance
+  ``pivots`` equal the reference's when the trajectories agree.
 * The general (two-phase) loop flips an instance to phase 2 at the end of
   the chunk in which it completed phase 1, not in that same iteration: the
   instance idles meanwhile (the step reports it optimal and does not pivot
@@ -517,11 +519,6 @@ def _step_bounded(kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
     return T, basis, out[8], out[9], out[10]
 
 
-def _read(*vals):
-    """The host's one read of the loop state per chunk."""
-    return torch.stack([v.to(torch.int64) for v in vals]).tolist()
-
-
 def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
                         obj_row_p1, obj_row_p2, need_p1,
                         tol: float = 1e-6, max_iters: int = 4096,
@@ -584,28 +581,30 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
 
 def _batch_chunk(st, cs, static, n_steps: int):
     """``n_steps`` steps of :func:`_solve_loop`, the chunk body that
-    ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.
-    Returns the new state (K2 and K3 update theirs in place)."""
+    ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.  Each
+    step writes its state in place (K2 and K3 update theirs themselves)
+    and runs only while some instance is RUNNING (``go``), the reference's
+    ``icond``: a step with none running changes no state tensor."""
     kind, bounded, phase2_only, tol, bland_after, feas_tol, devex = static
     i32 = torch.int32
-    T, basis, status, iters = st["T"], st["basis"], st["status"], st["iters"]
-    pivots, best_obj, no_imp = st["pivots"], st["best_obj"], st["no_imp"]
-    w, to_p2, phase = st["w"], st["to_p2"], st["phase"]
+    w, phase = st["w"], st["phase"]
     cm1f, cm2f = cs["cm1f"], cs["cm2f"]
     col_mask_p1, col_mask_p2 = cs["col_mask_p1"], cs["col_mask_p2"]
     art_mask_ext = cs["art_mask_ext"]
-    bst = None
-    if bounded:
-        bst = {k: st[k] for k in ("at_upper", "ub_B", "is_art_row")}
-    for _ in range(n_steps):
+    for _ in graphs.steps(st, n_steps):
+        T, basis, status = st["T"], st["basis"], st["status"]
+        pivots, best_obj, no_imp = st["pivots"], st["best_obj"], st["no_imp"]
+        to_p2 = st["to_p2"]
         running = status == RUNNING
-        iters = iters + running.any()
+        iters = st["iters"] + running.any()
         use_bland = no_imp >= bland_after
         col_mask = None
         if kind == "unfused":
             col_mask = col_mask_p2 if phase2_only else torch.where(
                 (phase == 1)[:, None], col_mask_p1, col_mask_p2)
+        bst = None
         if bounded:
+            bst = {k: st[k] for k in ("at_upper", "ub_B", "is_art_row")}
             T, basis, optimal, unbounded, active = _step_bounded(
                 kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
                 use_bland, w, cs["ub"], art_mask_ext, tol, devex,
@@ -634,20 +633,18 @@ def _batch_chunk(st, cs, static, n_steps: int):
                 torch.where(finish_p2 & optimal, STATUS_OPTIMAL,
                             torch.where(finish_p2 & unbounded,
                                         STATUS_UNBOUNDED, status)))
-        pivots = pivots + active.to(i32)
         # Objective progress for the stall-gated Bland switch (the
         # threshold rounds once, as the reference's loop contracts it).
         obj_b = -T[:, -1, -1]
         improved = obj_b < fma_rn(1.0 + best_obj.abs(), cs["neg_tol"],
                                   best_obj)
-        best_obj = torch.minimum(best_obj, obj_b)
-        no_imp = torch.where(improved, 0, no_imp + active.to(i32))
-    new = {"T": T, "basis": basis, "status": status, "iters": iters,
-           "pivots": pivots, "best_obj": best_obj, "no_imp": no_imp,
-           "to_p2": to_p2}
-    if bounded:
-        new.update(bst)
-    return new
+        graphs.store(st, T=T, basis=basis, status=status, iters=iters,
+                     pivots=pivots + active.to(i32),
+                     best_obj=torch.minimum(best_obj, obj_b),
+                     no_imp=torch.where(improved, 0,
+                                        no_imp + active.to(i32)),
+                     to_p2=to_p2, go=(status == RUNNING).any(),
+                     **(bst or {}))
 
 
 def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
@@ -682,6 +679,7 @@ def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
         "w": torch.ones((Bsz, N), dtype=dt, device=dev),  # RHS lane 1
         "to_p2": torch.zeros((Bsz,), dtype=torch.bool, device=dev),
         "phase": torch.where(need_p1, 1, 2).to(i32),
+        **graphs.step_state(dev),
     }
     consts = {
         "cm1f": torch.cat([col_mask_p1, zero_lane], dim=1),
@@ -734,7 +732,7 @@ def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
             if _on_first_chunk is not None:
                 _on_first_chunk()
                 _on_first_chunk = None
-            any_run, iters_h, any_flip = _read(
+            any_run, iters_h, any_flip = lp.read(
                 (st["status"] == RUNNING).any(), st["iters"],
                 st["to_p2"].any())
             if any_flip:

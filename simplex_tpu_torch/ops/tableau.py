@@ -21,7 +21,10 @@ Differences from the JAX module, all deliberate:
   Each step is branch-free on the device: pricing, the masked Devex update
   and K1 read a 0-d ``do_pivot`` flag instead of branching, so nothing is
   read back to the host per pivot.  On the card each chunk is one CUDA
-  graph, replayed (``runtime/graphs.py``); on the CPU it runs eagerly.
+  graph, replayed (``runtime/graphs.py``); on the CPU it runs eagerly.  A
+  chunk stops after its first step that does not pivot, as the JAX loop's
+  ``cond`` stops it: on the card the steps after a chunk's first are the
+  body of a WHILE conditional node of its graph.
   The host reads the loop state once per chunk (counted in
   ``STATE_READS``) and takes the accept / refactor decision there, which
   puts every refactor on the same pivot count as the JAX loop.  The dual
@@ -59,11 +62,12 @@ _INT_MAX = int(np.iinfo(np.int32).max)
 STATE_READS = 0
 
 
-def _read(*vals):
-    """The host's one read of the loop state a chunk: 0-d tensors as ints."""
+def _read(lp, *vals):
+    """The host's one read of the loop state a chunk: 0-d tensors as ints
+    (``graphs.Loop.read``)."""
     global STATE_READS
     STATE_READS += 1
-    return torch.stack([v.to(torch.int64) for v in vals]).tolist()
+    return lp.read(*vals)
 
 
 def state_from_standard_form(sf: StandardForm, device, dtype) -> Dict:
@@ -206,13 +210,15 @@ def _improved_below(T, best, tol):
 def _phase_chunk(st, cs, static, n_steps: int):
     """``n_steps`` device steps of :func:`_run_phase`'s loop, the chunk body
     that ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.
-    Returns the new state; ``T`` and ``basis`` are updated in place."""
+    Each step writes its state in place; a step runs only while the one
+    before it pivoted (``go``), since a step that does not pivot leaves
+    the state as it was."""
     tol, max_iters, bland_after, stall_limit, refactor_every, devex = static
     i64 = torch.int64
     T, basis, col_mask = st["T"], st["basis"], cs["col_mask"]
-    w, iters, since_ref = st["w"], st["iters"], st["since_ref"]
-    stall, no_imp, best = st["stall"], st["no_imp"], st["best"]
-    for _ in range(n_steps):
+    for _ in graphs.steps(st, n_steps):
+        w, iters, since_ref = st["w"], st["iters"], st["since_ref"]
+        stall, no_imp, best = st["stall"], st["no_imp"], st["best"]
         use_bland = no_imp >= bland_after
         s, r, optimal, unbounded = select_pivot(
             T, basis, col_mask, tol, use_bland,
@@ -224,15 +230,13 @@ def _phase_chunk(st, cs, static, n_steps: int):
             w = torch.where(do, _devex_update(w, T, basis, r, s), w)
         pivot_update(T, basis, r, s, clamp_rhs=True, do_pivot=do)
         step = do.to(i64)
-        since_ref = since_ref + step
-        iters = iters + step
         improved, obj = _improved_below(T, best, tol)
-        no_imp = torch.where(improved, 0, no_imp + step)
-        stall = torch.where(improved, 0, stall)
-        best = torch.minimum(best, obj)
-    return {"w": w, "iters": iters, "since_ref": since_ref, "stall": stall,
-            "no_imp": no_imp, "best": best, "want_stop": want_stop,
-            "optimal": optimal}
+        graphs.store(st, w=w, iters=iters + step,
+                     since_ref=since_ref + step,
+                     stall=torch.where(improved, 0, stall),
+                     no_imp=torch.where(improved, 0, no_imp + step),
+                     best=torch.minimum(best, obj), want_stop=want_stop,
+                     optimal=optimal, go=do)
 
 
 def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
@@ -247,7 +251,8 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
       A step pivots when there is no verdict, the refactor period has room,
       and neither the iteration cap nor the stall cutoff is hit.  Otherwise
       the step is a no-op, and since a no-op leaves the state as it was,
-      every later step of the chunk is one too;
+      every later step of the chunk would be one too: the chunk ends there,
+      as the JAX loop's ``cond`` ends it;
     * once per chunk the host reads the state (one sync) and takes the
       JAX loop's non-pivot branch: accept a verdict from a freshly
       refactorized tableau (or after 3 stalled confirms), otherwise
@@ -265,7 +270,8 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
              "stall": _full(0, i64, dev), "no_imp": _full(0, i64, dev),
              "best": _full(math.inf, dt, dev),
              "want_stop": _full(False, torch.bool, dev),
-             "optimal": _full(False, torch.bool, dev)}
+             "optimal": _full(False, torch.bool, dev),
+             **graphs.step_state(dev)}
     static = (float(tol), int(max_iters), int(bland_after), stall_limit,
               int(refactor_every), bool(devex))
     since0 = 1
@@ -275,8 +281,8 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
         while True:
             lp.run(_phase_chunk, refactor_every - since0 + 1)
             want, opt, it, ni, stl, sr = _read(
-                st["want_stop"], st["optimal"], st["iters"], st["no_imp"],
-                st["stall"], st["since_ref"])
+                lp, st["want_stop"], st["optimal"], st["iters"],
+                st["no_imp"], st["stall"], st["since_ref"])
             if it >= max_iters or ni >= stall_limit:
                 status = STATUS_ITERATION_LIMIT
                 break
@@ -481,22 +487,22 @@ def _refactor_bounded(T0_rows, basis, raw_obj, at_upper, ub_safe):
 def _dual_chunk(st, cs, static, n_steps: int):
     """``n_steps`` device steps of :func:`_run_dual`'s loop, the chunk body
     that ``runtime/graphs.py`` runs eagerly or replays as one CUDA graph.
-    Returns the new state; ``T`` and ``basis`` are updated in place."""
+    Each step writes its state in place and runs only while the one before
+    it pivoted (``go``), as in :func:`_phase_chunk`."""
     tol, max_iters, bland_after, refactor_every, devex, bounded = static
     i64 = torch.int64
     T, basis, col_mask = st["T"], st["basis"], cs["col_mask"]
-    w, iters, since_ref = st["w"], st["iters"], st["since_ref"]
-    stall, no_imp, best = st["stall"], st["no_imp"], st["best"]
-    new = {}
     if bounded:
-        at_upper, ub, ub_safe = st["at_upper"], cs["ub"], cs["ub_safe"]
-        cols = cs["cols"]
-    for _ in range(n_steps):
+        ub, ub_safe, cols = cs["ub"], cs["ub_safe"], cs["cols"]
+    for _ in graphs.steps(st, n_steps):
+        w, iters, since_ref = st["w"], st["iters"], st["since_ref"]
+        stall, no_imp, best = st["stall"], st["no_imp"], st["best"]
         use_bland = no_imp >= bland_after
         if not bounded:
             r, s, primal_ok, no_pivot = _dual_select(
                 T, col_mask, w, tol, use_bland, devex)
         else:
+            at_upper = st["at_upper"]
             r, s, primal_ok, no_pivot, leave_up = _dual_select_bounded(
                 T, basis, col_mask, at_upper, ub, w, tol, use_bland, devex)
         want_stop = primal_ok | no_pivot
@@ -526,18 +532,15 @@ def _dual_chunk(st, cs, static, n_steps: int):
                                    T[:, -1])
             at_upper = torch.where(do & (cols == j_out[0]), leave_up,
                                    at_upper)
-            new["at_upper"] = at_upper
+            graphs.store(st, at_upper=at_upper)
         step = do.to(i64)
-        since_ref = since_ref + step
-        iters = iters + step
         improved, obj = _improved_above(T, best, tol)
-        no_imp = torch.where(improved, 0, no_imp + step)
-        stall = torch.where(improved, 0, stall)
-        best = torch.maximum(best, obj)
-    new.update(w=w, iters=iters, since_ref=since_ref, stall=stall,
-               no_imp=no_imp, best=best, want_stop=want_stop,
-               primal_ok=primal_ok)
-    return new
+        graphs.store(st, w=w, iters=iters + step,
+                     since_ref=since_ref + step,
+                     stall=torch.where(improved, 0, stall),
+                     no_imp=torch.where(improved, 0, no_imp + step),
+                     best=torch.maximum(best, obj), want_stop=want_stop,
+                     primal_ok=primal_ok, go=do)
 
 
 def _improved_above(T, best, tol):
@@ -572,7 +575,8 @@ def _run_dual(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
              "stall": _full(0, i64, dev), "no_imp": _full(0, i64, dev),
              "best": _full(-math.inf, dt, dev),
              "want_stop": _full(False, torch.bool, dev),
-             "primal_ok": _full(False, torch.bool, dev)}
+             "primal_ok": _full(False, torch.bool, dev),
+             **graphs.step_state(dev)}
     consts = {"col_mask": col_mask}
     if bounds is not None:
         state["at_upper"] = bounds["at_upper"]
@@ -584,9 +588,9 @@ def _run_dual(T, basis, col_mask, T0_rows, raw_obj, tol, max_iters,
         st = lp.state
         while True:
             lp.run(_dual_chunk, refactor_every - since0 + 1)
-            want, ok, it, stl, sr = _read(st["want_stop"], st["primal_ok"],
-                                          st["iters"], st["stall"],
-                                          st["since_ref"])
+            want, ok, it, stl, sr = _read(lp, st["want_stop"],
+                                          st["primal_ok"], st["iters"],
+                                          st["stall"], st["since_ref"])
             if it >= max_iters:
                 status = STATUS_ITERATION_LIMIT
                 break

@@ -43,16 +43,39 @@ budget, or whose entry another solve is using, runs on a private entry
 whose buffers are its own tensors (nothing is copied) and which is dropped
 when the solve ends.
 
+Loop exit (the reference's ``lax.while_loop`` condition): a chunk body
+runs its steps through :func:`steps`.  Every step writes its new state
+into the state tensors in place, raises ``state["steps"]`` and sets
+``state["go"]``, a 0-d bool, to whether the next step may change
+anything; no step runs once ``go`` is false.  Eagerly the host reads
+``go`` before each step after the first (a free read on the CPU).  A
+capture holds the first step and one more: the chunk is captured as an
+ordered list of parts, each a torch CUDA graph in the entry's pool (the
+stretches outside any step, the first step, the second), and
+``csrc/graph_steps.cu`` chains them into one executable graph in which
+the second step is the body of a WHILE conditional node (CUDA >= 12.4)
+that runs while ``go`` holds and the chunk has steps left (through the
+CUDA runtime: PyTorch 2.11, on the card, binds no conditional capture of
+its own).  A replay then launches no kernel after the step that reached
+the verdict, and the host reads nothing more than before.  Every step
+after a chunk's first runs the same code, as a ``while_loop``'s body does.
+
 Launch counts: a capture enqueues kernels without running them, so the
 wrappers' counters (``LAUNCHES`` of K1, K2, K3 and K4) are set back after
-it, and every replay adds the launches its capture enqueued.
+it.  A replay adds the launches its capture enqueued outside any step at
+once, and those of the steps that ran when the loop reads the state
+(:meth:`Loop.read`, which reads ``state["steps"]`` with the loop's own
+values, in the same transfer): the first step's, then the second's for
+every later one.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import threading
 import time
-from typing import Callable, Dict, Optional
+import warnings
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -68,10 +91,12 @@ _EAGER = False
 
 # Chunks run since the counters were last reset to 0: replays of a graph,
 # captures (each after its chunk ran eagerly as the warm-up), and eager
-# chunks (on the CPU, under _EAGER, and the warm-ups).
+# chunks (on the CPU, under _EAGER, and the warm-ups); and steps.
 REPLAYS = 0
 CAPTURES = 0
 EAGER_CHUNKS = 0
+# Steps of bodies with steps that ran (counted at each Loop.read).
+STEPS = 0
 
 _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
 _LOCK = threading.Lock()
@@ -94,21 +119,95 @@ def _add_counters(counts):
         setattr(mod, name, getattr(mod, name) + n)
 
 
-def _store(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
-    """Write a chunk's new values into the state tensors, in place."""
-    for k, v in new.items():
+def _store(state: Dict[str, torch.Tensor],
+           new: Optional[Dict[str, torch.Tensor]]):
+    """Write a chunk's or a step's new values into the state tensors, in
+    place (``new`` None: the body wrote them itself)."""
+    for k, v in (new or {}).items():
         if v is not state[k]:
             state[k].copy_(v)
 
 
+def store(state: Dict[str, torch.Tensor], **new: torch.Tensor):
+    """End a step: copy its new values into the state tensors (``copy_``
+    is exact, so a step reads what the previous one computed, bit for
+    bit)."""
+    _store(state, new)
+
+
+# The capture under way on this thread, if any (read by steps()).
+_CAPTURING = threading.local()
+
+
+class _Record:
+    """What one capture enqueued: the launches of each step it holds (the
+    first step and the loop's body)."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.steps: List[List[int]] = []
+
+
+def step_state(device) -> Dict[str, torch.Tensor]:
+    """The two state tensors of a loop whose body runs :func:`steps`."""
+    return {"go": torch.ones((), dtype=torch.bool, device=device),
+            "steps": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def steps(state: Dict[str, torch.Tensor], n_steps: int):
+    """The steps of one chunk: ``for _ in steps(state, n): <one step>``.
+
+    Yields at most ``n_steps`` times.  The first step always runs; each
+    later one only while ``state["go"]`` (0-d bool, written by the step
+    before it) is true, so a step must leave ``go`` false only where
+    every later step of the chunk would change no state tensor.  Every
+    step after the first must run the same code.  ``state["steps"]``
+    (0-d int64) counts the steps that ran.  Eagerly, the host reads ``go``
+    before each later step and stops at the first false one.  A capture
+    takes the first step, then the second as the body of a WHILE node on
+    ``go`` and the count (:class:`_CudaGraph`), and stops.
+    """
+    go, count = state["go"], state["steps"]
+    rec = getattr(_CAPTURING, "rec", None)
+    count.zero_()
+    for k in range(n_steps if rec is None else min(n_steps, 2)):
+        if rec is None:
+            if k and not bool(go):
+                return
+            count.add_(1)
+            yield k
+            continue
+        rec.graph.begin_step((go, count, n_steps) if k else None)
+        before = _read_counters()
+        try:
+            count.add_(1)
+            yield k
+        finally:
+            rec.steps.append([b - a for a, b in
+                              zip(before, _read_counters())])
+            rec.graph.end_step()
+
+
 class _CudaGraph:
     """One captured chunk on the card: its warm-up, its capture into the
-    entry's memory pool and its replay."""
+    entry's memory pool and its replay.
+
+    A chunk without steps is one torch graph.  A chunk with steps is
+    captured as parts (``begin_step`` / ``end_step`` cut them), chained by
+    ``csrc/graph_steps.cu`` into one executable graph in which the second
+    step's part is the body of a WHILE node."""
 
     def __init__(self, device, pool):
         self.device = device
         self.pool = pool
         self.graph = None
+        # (torch graph, loop or None) of each part, in capture order; the
+        # parts hold the pool (and so the memory the chain addresses).
+        self._parts = []
+        self._open = None
+        self._exec = None
+        self._lib = None
+        self._stream = None
 
     def warm_up(self, fn: Callable[[], None]):
         """Run ``fn`` eagerly on the side stream that captures, ordered
@@ -126,24 +225,88 @@ class _CudaGraph:
         added to the allocator's reserve (the pool's growth)."""
         current = torch.cuda.current_stream(self.device)
         before = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
         side = _side_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            # thread_local: another thread's allocations (the certify
-            # worker, a server thread) do not break this capture.
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
+            self._begin(None)
             try:
                 fn()
             finally:
-                graph.capture_end()
+                self._end()
+            if len(self._parts) == 1:
+                self.graph = self._parts.pop()[0]
+                self.graph.instantiate()
+            else:
+                self._chain(side)
         current.wait_stream(side)
-        self.graph = graph
         return torch.cuda.memory_reserved(self.device) - before
 
+    def begin_step(self, loop):
+        """Start a step's part: ``loop`` None for one that runs once, or
+        ``(go, count, n_steps)`` for the body of a WHILE node that runs
+        while ``go`` holds and ``count < n_steps``."""
+        self._end()
+        self._begin(loop)
+
+    def end_step(self):
+        self._end()
+        self._begin(None)
+
+    def _begin(self, loop):
+        # thread_local: another thread's allocations (the certify worker,
+        # a server thread) do not break this capture.  keep_graph: the
+        # chain clones the part's graph.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self._open = (graph, loop)
+
+    def _end(self):
+        graph, loop = self._open
+        self._open = None
+        with warnings.catch_warnings():
+            # The part after a step is empty; the chain leaves it out.
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            graph.capture_end()
+        self._parts.append((graph, loop))
+
+    def _chain(self, stream):
+        from . import kernels
+
+        lib = kernels.library()
+        n = len(self._parts)
+        loops = [loop or (None, None, 0) for _, loop in self._parts]
+
+        def ptrs(i):
+            return (ctypes.c_uint64 * n)(*(0 if lp[i] is None
+                                           else lp[i].data_ptr()
+                                           for lp in loops))
+
+        parts = (ctypes.c_uint64 * n)(
+            *(g.raw_cuda_graph() for g, _ in self._parts))
+        limits = (ctypes.c_int64 * n)(*(lp[2] for lp in loops))
+        exec_ = ctypes.c_void_p()
+        err = lib.graph_chain_build(n, parts, ptrs(0), ptrs(1), limits,
+                                    ctypes.byref(exec_), stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError("building a chunk's graph with its loop of "
+                               f"steps failed: CUDA error {err}")
+        self._lib, self._exec = lib, exec_
+
     def replay(self):
-        self.graph.replay()
+        if self._exec is None:
+            self.graph.replay()
+            return
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._lib.graph_chain_launch(self._exec, self._stream)
+        if err != 0:
+            raise RuntimeError(f"a chunk's graph failed to launch: CUDA "
+                               f"error {err}")
+
+    def __del__(self):
+        # After the last launch has finished; the parts (and the pool they
+        # hold) go after the chain.
+        if self._exec is not None:
+            self._lib.graph_chain_destroy(self._exec, self._stream)
 
 
 _SIDE = threading.local()
@@ -214,14 +377,17 @@ class _Entry:
                 mine[k].copy_(v)
 
     def run(self, body, static, args):
+        """One chunk: a replay, or the warm-up and capture of a new
+        variant.  Returns the launches of each step of a replay, which the
+        loop adds once it knows how many ran (:meth:`Loop.read`)."""
         global REPLAYS, CAPTURES, EAGER_CHUNKS
         hit = self.graphs.get(args)
         if hit is not None:
-            graph, launches = hit
+            graph, launches, step_launches = hit
             graph.replay()
             _add_counters(launches)
             REPLAYS += 1
-            return
+            return step_launches
 
         def chunk():
             _store(self.state, body(self.state, self.consts, static, *args))
@@ -233,16 +399,22 @@ class _Entry:
         graph.warm_up(chunk)
         EAGER_CHUNKS += 1
         before = _read_counters()
+        rec = _CAPTURING.rec = _Record(graph)
         t0 = time.perf_counter()
         try:
             self.pool_bytes += max(graph.capture(chunk), 0)
         finally:
+            _CAPTURING.rec = None
             after = _read_counters()
             # The capture ran nothing: set the counters back.
             _add_counters([b - a for a, b in zip(after, before)])
         self.capture_s += time.perf_counter() - t0
-        self.graphs[args] = (graph, [a - b for a, b in zip(after, before)])
+        # The launches outside any step, and those of each step.
+        outside = [a - b - sum(s[i] for s in rec.steps)
+                   for i, (a, b) in enumerate(zip(after, before))]
+        self.graphs[args] = (graph, outside, rec.steps)
         CAPTURES += 1
+        return None
 
 
 def _acquire(key, state, consts, device) -> _Entry:
@@ -317,31 +489,36 @@ class Loop:
     """One solve loop's state, run a chunk at a time.
 
     ``name`` names the loop; ``state`` its tensors that the chunks update
-    (the loop takes them over: at the end they hold the final state);
-    ``consts`` the read-only tensors the body reads; ``static`` a hashable
-    tuple of the Python values the body reads.  Use as a context manager::
+    (the loop takes them over: at the end they hold the final state; a
+    body with steps needs :func:`step_state`'s two); ``consts`` the read-only
+    tensors the body reads; ``static`` a hashable tuple of the Python
+    values the body reads.  Use as a context manager::
 
         with Loop("tableau.phase", state, consts, static) as lp:
             lp.run(body, n_steps)       # one chunk
+            a, b = lp.read(x, y)        # the host's read after it
             lp.state["T"]               # the state between two chunks
 
-    ``body(state, consts, static, *args)`` returns the new values of some
-    state keys (it may also update state tensors in place); it must not
-    read the host's clock, the device's results or any Python value that
-    is not in ``static`` or ``args``.  ``args`` (hashable) select the
-    chunk variant, such as its length.  Between two chunks the caller
-    reads and writes ``lp.state`` in place only.
+    ``body(state, consts, static, *args)`` either returns the new values
+    of some state keys or writes them in place and returns None (a body
+    that runs :func:`steps` does the latter); it must not read the host's
+    clock, the device's results or any Python value that is not in
+    ``static`` or ``args``.  ``args`` (hashable) select the chunk variant,
+    such as its length.  Between two chunks the caller reads and writes
+    ``lp.state`` in place only, and a body with steps has its chunk's
+    state read through :meth:`read` before the next chunk.
     """
 
     def __init__(self, name: str, state: Dict[str, torch.Tensor],
                  consts: Dict[str, torch.Tensor], static: tuple = ()):
         self.name = name
         self.static = static
-        self._own = state
-        self._consts = consts
         first = next(iter(state.values()))
         self.device = first.device
+        self._own = state
+        self._consts = consts
         self._entry: Optional[_Entry] = None
+        self._pending = None
         self.state = state
         self.consts = consts
 
@@ -357,14 +534,36 @@ class Loop:
     def run(self, body, *args):
         """One chunk of the loop."""
         global EAGER_CHUNKS
+        if self._pending:
+            raise RuntimeError(f"{self.name}: read the last chunk's state "
+                               "(Loop.read) before the next chunk")
         if self._entry is not None:
-            self._entry.run(body, self.static, args)
+            self._pending = self._entry.run(body, self.static, args)
             return
         _store(self.state, body(self.state, self.consts, self.static, *args))
         EAGER_CHUNKS += 1
 
+    def read(self, *vals: torch.Tensor, dtype=torch.int64) -> list:
+        """The host's one read after a chunk: ``vals`` (0-d tensors) as
+        Python numbers through ``dtype``, read in one transfer with the
+        chunk's step count, which adds the launches of the steps that a
+        replay ran to the kernels' counters."""
+        global STEPS
+        out = torch.stack([v.to(dtype) for v in
+                           (*vals, self.state["steps"])]).tolist()
+        pending, self._pending = self._pending, None
+        ran = int(out.pop())
+        STEPS += ran
+        if pending:
+            # The first step's launches, then the loop body's for each
+            # later step.
+            _add_counters([pending[0][i] + (ran - 1) * pending[-1][i]
+                           for i in range(len(pending[0]))])
+        return out
+
     def __exit__(self, exc_type, *exc):
         entry, self._entry = self._entry, None
+        self._pending = None
         if entry is None:
             return False
         try:

@@ -40,14 +40,18 @@ def _out(**kw):
     return {k: _np(v) for k, v in kw.items()}
 
 
-def dense_phase(device, dtype, seed=5, devex=True):
-    """``solve_tableau`` (``_run_phase``, both phases) on a mixed-row LP."""
+def dense_inputs(seed=5):
+    """The standard form of :func:`dense_phase` and its solve options."""
     sf = compile_standard_form(LinearProgram(**seeded_lp(seed)),
                                dtype=np.float64)
+    return sf, dict(need_phase1=sf.need_phase1, tol=1e-9, refactor_every=6)
+
+
+def dense_phase(device, dtype, seed=5, devex=True):
+    """``solve_tableau`` (``_run_phase``, both phases) on a mixed-row LP."""
+    sf, kw = dense_inputs(seed)
     st = tt.state_from_standard_form(sf, device, dtype)
-    T, basis, status, iters = tt.solve_tableau(
-        **st, need_phase1=sf.need_phase1, tol=1e-9, refactor_every=6,
-        devex=devex)
+    T, basis, status, iters = tt.solve_tableau(**st, **kw, devex=devex)
     return _out(T=T, basis=basis, status=status, iters=iters)
 
 
@@ -61,9 +65,10 @@ def _scaled_lp(seed, m=24, n=16):
         b * rng.uniform(0.6, 1.0, m)
 
 
-def dual(device, dtype, seed=20, devex=True):
-    """``solve_tableau_dual`` (``_run_dual``) from the old optimal basis
-    refactored under a shrunk RHS, as ``reoptimize`` starts it."""
+def dual_inputs(seed=20):
+    """:func:`dual`'s start as numpy arrays ``(T0, basis, col_mask)`` and
+    its options: the old optimal basis refactored under a shrunk RHS, as
+    ``reoptimize`` starts it."""
     kw, b, b2 = _scaled_lp(seed)
     cpu64 = SolverConfig(device="cpu", dtype="float64")
     basis = td.solve_lp(LinearProgram(b=b, **kw), cpu64).basis
@@ -75,16 +80,24 @@ def dual(device, dtype, seed=20, devex=True):
     T_rows = np.linalg.solve(rows[:, basis], rows)
     obj = sf.obj_row_p2 - sf.obj_row_p2[basis] @ T_rows
     T0 = np.concatenate([T_rows, obj[None]])
+    return (T0, np.asarray(basis, np.int64), sf.col_mask_p2), dict(
+        tol=1e-9, max_iters=500, bland_after=250, refactor_every=4)
+
+
+def dual(device, dtype, seed=20, devex=True):
+    """``solve_tableau_dual`` (``_run_dual``) from the old optimal basis
+    refactored under a shrunk RHS, as ``reoptimize`` starts it."""
+    (T0, basis, cm), kw = dual_inputs(seed)
     T, basis, status, iters = tt.solve_tableau_dual(
         torch.as_tensor(T0, device=device).to(dtype),
-        torch.as_tensor(np.asarray(basis, np.int64), device=device),
-        torch.as_tensor(sf.col_mask_p2, device=device), tol=1e-9,
-        max_iters=500, bland_after=250, refactor_every=4, devex=devex)
+        torch.as_tensor(basis, device=device),
+        torch.as_tensor(cm, device=device), devex=devex, **kw)
     return _out(T=T, basis=basis, status=status, iters=iters)
 
 
-def dual_bounded(device, dtype, seed=405, devex=True):
-    """``solve_tableau_dual_bounded`` after an RHS increase that pushes
+def dual_bounded_inputs(seed=405):
+    """:func:`dual_bounded`'s start as numpy arrays ``(T0, basis,
+    col_mask, ub, at_upper)`` and its options: an RHS increase that pushes
     basics above their upper bounds, from a revised parent."""
     rng = np.random.default_rng(seed)
     m, n = 24, 16
@@ -105,33 +118,47 @@ def dual_bounded(device, dtype, seed=405, devex=True):
     atu = np.asarray(parent.at_upper, bool)[:k] & np.isfinite(sf.ub_ext[:k])
     atu[parent.basis] = False
     T0 = np.concatenate([sf.tableau[:sf.m_pad], sf.obj_row_p2[None]])
+    return (T0, np.asarray(parent.basis, np.int64), sf.col_mask_p2,
+            sf.ub_ext, atu), dict(tol=1e-9, max_iters=500, bland_after=250,
+                                  refactor_every=3)
+
+
+def dual_bounded(device, dtype, seed=405, devex=True):
+    """``solve_tableau_dual_bounded`` after an RHS increase that pushes
+    basics above their upper bounds, from a revised parent."""
+    (T0, basis, cm, ub, atu), kw = dual_bounded_inputs(seed)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a), device=device)
 
     T, basis, at_upper, status, iters = tt.solve_tableau_dual_bounded(
-        dev(T0).to(dtype), dev(np.asarray(parent.basis, np.int64)),
-        dev(sf.col_mask_p2), dev(sf.ub_ext).to(dtype), dev(atu), tol=1e-9,
-        max_iters=500, bland_after=250, refactor_every=3, devex=devex)
+        dev(T0).to(dtype), dev(basis), dev(cm), dev(ub).to(dtype), dev(atu),
+        devex=devex, **kw)
     return _out(T=T, basis=basis, at_upper=at_upper, status=status,
                 iters=iters)
 
 
-def _batch(ops, ub, backend, devex, device, dtype):
+def batch_inputs(ops, ub, devex):
+    """The ``CompiledBatch`` (numpy arrays) of a batched case and its
+    options, without the backend."""
     c, A, b, ops = random_batch(11, ops=ops)
     ubs = None if not ub else random_ub(12, (c.shape[0], c.shape[1]), 0.5,
                                         2.0, frac=0.6)
     cb = tmb.compile_batch_uniform(c, A, b, ops, maximize=True, ub=ubs)
+    return cb, dict(tol=1e-9, refactor_every=5, devex=devex,
+                    phase2_only=not bool(np.any(cb.need_p1)))
+
+
+def _batch(ops, ub, backend, devex, device, dtype):
+    cb, kw = batch_inputs(ops, ub, devex)
     st = tb.batch_state_from_compiled(cb, device, dtype)
-    phase2_only = not bool(st["need_p1"].any())
-    kw = dict(tol=1e-9, refactor_every=5, backend=backend, devex=devex,
-              phase2_only=phase2_only)
     if ub:
         T, basis, at_upper, status, iters, pivots = \
-            tb.solve_tableau_batch_bounded(**st, **kw)
+            tb.solve_tableau_batch_bounded(**st, backend=backend, **kw)
         return _out(T=T, basis=basis, at_upper=at_upper, status=status,
                     iters=iters, pivots=pivots)
-    T, basis, status, iters, pivots = tb.solve_tableau_batch(**st, **kw)
+    T, basis, status, iters, pivots = tb.solve_tableau_batch(
+        **st, backend=backend, **kw)
     return _out(T=T, basis=basis, status=status, iters=iters, pivots=pivots)
 
 
@@ -155,9 +182,10 @@ def bounded_le(device, dtype, backend="auto"):
     return _batch(None, True, backend, True, device, dtype)
 
 
-def revised(device, dtype, seed=7, devex=True):
-    """``_run_phase_revised``: phase 1, then phase 2 from its end, on a
-    mixed-row LP with upper bounds (refactors every 8 steps)."""
+def revised_inputs(seed=7):
+    """:func:`revised`'s standard-form arrays (numpy): ``A``, ``b``,
+    ``ub``, the starting ``basis``, the artificial mask, each phase's
+    ``(in_phase2, cost, col_mask)``, and the options."""
     kw = seeded_lp(seed)
     rng = np.random.default_rng(seed)
     n = len(kw["c"])
@@ -169,23 +197,31 @@ def revised(device, dtype, seed=7, devex=True):
     ub = sf.ub_ext if sf.ub_ext is not None else np.full(k, np.inf)
     art = np.concatenate([sf.col_mask_p1 & ~sf.col_mask_p2,
                           np.ones(m, bool)])[:k]
+    phases = [(False, sf.obj_row_p1[:k + 1], sf.col_mask_p1),
+              (True, sf.obj_row_p2[:k + 1], sf.col_mask_p2)]
+    return (sf.tableau[:m, :k], sf.tableau[:m, k], ub,
+            np.asarray(sf.basis, np.int64), art, phases), dict(
+                tol=1e-9, max_iters=400, bland_after=60, refactor_every=8)
+
+
+def revised(device, dtype, seed=7, devex=True):
+    """``_run_phase_revised``: phase 1, then phase 2 from its end, on a
+    mixed-row LP with upper bounds (refactors every 8 steps)."""
+    (A, b, ub, basis, art, phases), kw = revised_inputs(seed)
 
     def dev(a, dt=None):
         t = torch.as_tensor(np.ascontiguousarray(a), device=device)
         return t if dt is None else t.to(dt)
 
-    A, b = dev(sf.tableau[:m, :k], dtype), dev(sf.tableau[:m, k], dtype)
-    ub_t = dev(ub, dtype)
-    basis = dev(np.asarray(sf.basis, np.int64))
-    at_up = torch.zeros(k, dtype=torch.bool, device=device)
+    A, b, ub_t = dev(A, dtype), dev(b, dtype), dev(ub, dtype)
+    basis = dev(basis)
+    at_up = torch.zeros(A.shape[1], dtype=torch.bool, device=device)
     state = t_rev._refactor(A, b, basis, at_up, ub_t) + (basis, at_up)
     out, iters = {}, 0
-    for phase2, cost, cm in ((False, sf.obj_row_p1, sf.col_mask_p1),
-                             (True, sf.obj_row_p2, sf.col_mask_p2)):
+    for phase2, cost, cm in phases:
         res = t_rev._run_phase_revised(
-            A, b, dev(cost[:k + 1], dtype), dev(cm), dev(art), *state, ub_t,
-            iters, phase2, tol=1e-9, max_iters=400, bland_after=60,
-            refactor_every=8, devex=devex)
+            A, b, dev(cost, dtype), dev(cm), dev(art), *state, ub_t,
+            iters, phase2, devex=devex, **kw)
         state, iters = res[:4], res[4]
         out.update({f"{name}{int(phase2)}": v for name, v in zip(
             ("B_inv", "x_B", "basis", "at_upper", "iters", "status", "obj"),

@@ -7,8 +7,9 @@ chunk became a body of its own (float64, recorded as hashes of the
 outputs' bits); the batched stream's private callback, once a batch, after
 the previous batch's first chunk.  On the card (``gpu``): every loop run
 as replayed graphs against the same loop run eagerly, bit for bit, with
-the same kernel launches.  Nothing here imports JAX, so on a machine with
-a card and no JAX:
+the same kernel launches; and the replayed chunks' launches held to the
+steps the loops need (no kernel after a chunk's verdict).  Nothing here
+imports JAX, so on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_graphs.py -m gpu --noconftest
 """
@@ -18,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_loop_cases as loop_cases
 from _torch_loop_cases import CASES, fingerprint
 from _torch_parity import CPU, MIXED_OPS, random_batch
 
 from simplex_tpu_torch.config import SolverConfig
 from simplex_tpu_torch.models import batched as tmb
+from simplex_tpu_torch.models import revised as t_rev
 from simplex_tpu_torch.ops import batched as tb
 from simplex_tpu_torch.ops import batched_kernel, pivot_kernel
+from simplex_tpu_torch.ops import tableau as tt
 from simplex_tpu_torch.runtime import graphs, staging
 
 # Each case of _torch_loop_cases.py in float64 on the CPU, as the loops
@@ -447,4 +451,56 @@ def test_graph_solve_is_bit_equal_to_the_eager_solve(cuda, case, dtype,
         assert sorted(got) == sorted(eager_out)
         for k in eager_out:
             np.testing.assert_array_equal(got[k], eager_out[k], err_msg=k)
+    graphs.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["dense_phase", "dense_phase_dantzig",
+                                  "dual", "dual_bounded", "batched_le",
+                                  "batched_mixed", "bounded_le",
+                                  "bounded_mixed", "revised"])
+def test_replayed_chunks_stop_at_the_verdict(cuda, case, dtype,
+                                             monkeypatch):
+    """Through replayed graphs (the first run captures, the second
+    replays every chunk): K1 once a pivot plus once a chunk in the dense
+    and dual loops (the artificials' eviction apart), K2 or K3 once an
+    iteration in the batched loops, the revised loop's iterations plus at
+    most one step a chunk."""
+    evicted = []
+    evict = tt._evict_artificials
+
+    def counted(*args, **kw):
+        before = pivot_kernel.LAUNCHES
+        out = evict(*args, **kw)
+        evicted.append(pivot_kernel.LAUNCHES - before)
+        return out
+
+    monkeypatch.setattr(tt, "_evict_artificials", counted)
+    # The dual cases' inputs come from CPU solves: build them first.
+    for name in ("dual_inputs", "dual_bounded_inputs"):
+        made = getattr(loop_cases, name)()
+        monkeypatch.setattr(loop_cases, name, lambda *a, made=made: made)
+    for _ in range(2):
+        evicted.clear()
+        counts, steps0 = graphs._read_counters(), graphs.STEPS
+        reads, replays = tt.STATE_READS + t_rev.STATE_READS, graphs.REPLAYS
+        out = CASES[case](cuda, dtype)
+        torch.cuda.synchronize()
+        k1, k2, k3 = [b - a for a, b in
+                      zip(counts, graphs._read_counters())][:3]
+        steps = graphs.STEPS - steps0
+        chunks = tt.STATE_READS + t_rev.STATE_READS - reads
+    assert graphs.REPLAYS > replays
+    if case == "revised":
+        iters = int(out["iters1"])          # phase 1's iterations included
+        assert iters < steps <= iters + chunks and k1 == k2 == k3 == 0
+    elif case.startswith(("dense", "dual")):
+        iters = int(out["iters"])
+        assert k1 - sum(evicted) == steps == iters + chunks
+    else:
+        iters = int(out["iters"])
+        assert steps == iters > 0 and k1 == 0
+        assert (k2, k3) == ((0, iters) if case.startswith("bounded")
+                            else (iters, 0))
     graphs.clear()
