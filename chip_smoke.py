@@ -144,7 +144,18 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     (K1 launched 256 times by its comparison) and one chunk of 32 pivots
     under ``torch.profiler``: NCCL calls a pivot, their and the update's
     share of the device time, the busy share.  The sharded solves launch
-    no kernel of the port.
+    no kernel of the port.  The sharded loop's steps stop at the verdict
+    too: (c) and (d) log its steps against its iterations
+    (``[loop-exit]``), equal, and (c) holds the 32,768-row solve through
+    graphs bit-equal to its eager solve;
+21. the measurement runner ``python -m simplex_tpu_torch.bench``, one
+    subprocess a mode (``BENCH_MODES``): the default mode (phase 13's
+    pivot rate with the four batched sub-benches of phases 8 and 11),
+    ``--batch`` at 16,384, ``--solve-dense`` (phase 5's LP), ``--pdhg``
+    (phase 17's cell), ``--sharded`` (phase 20's 10240), ``--stream`` at
+    500,000 and ``--stream-exact`` at 262,144 (phases 18 and 19's cuts);
+    each must exit 0 and print one JSON line, logged as ``[bench]``, and
+    pass its gate.
 
 Every solve loop runs each chunk of device steps as one replayed CUDA graph
 (``simplex_tpu_torch/runtime/graphs.py``).  Phases 5, 8, 11, 14, 15, 16,
@@ -160,12 +171,13 @@ card (``[graphs-cache]``).
 A chunk's steps stop at the loop's verdict, as the reference's
 ``lax.while_loop`` does: in a replayed graph the steps after a chunk's
 first are the body of a WHILE conditional node, and no kernel runs after
-the step that gave the verdict.  Phases 5, 8, 11, 14 (b) and 16 log each
+the step that gave the verdict.  Phases 5, 8, 11, 14 (b), 16 and 20 log each
 loop's launches (the revised engine's steps) against that bound beside
 its seconds both ways and the figures from before (``[loop-exit]``), and
 fail past it: K1 at most one launch a pivot plus one a chunk (phases 5
 and 16), K2 and K3 exactly one an iteration (phases 8 and 11), the
-revised engine at most its iterations plus one step a chunk (phase 14 b).
+revised engine at most its iterations plus one step a chunk (phase 14 b),
+the sharded loop exactly one step an iteration (phase 20).
 
 Each kernel's record gives its time at the main path's largest shape, its
 plain twin's, the bound (the bytes a step must move over 3.35 TB/s, or its
@@ -1661,7 +1673,7 @@ def phase_pivot_rate(torch, pivot_kernel, sk, gpu):
     pivot_kernel.LAUNCHES = sk.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = bench_pivot_update(size, iters, reps)
+    res = bench_pivot_update(size, iters, reps, with_batched=False)
     wall = time.perf_counter() - t0
     k1, k4 = pivot_kernel.LAUNCHES, sk.LAUNCHES
     d = res["detail"]
@@ -2150,6 +2162,10 @@ BEFORE_EXIT = {
     "phase 16 (a)": "259 K1 launches for 148 pivots; the device loop "
                     "0.093-0.102 s through graphs, 0.290-0.553 s eager",
     "phase 16 (b)": "390 K1 launches over the shrink and the increase",
+    "phase 20 (c)": "96 steps (3 chunks of 32) for 68 iterations; 2.45-3.27 "
+                    "s the whole solve_arrays_sharded",
+    "phase 20 (d)": "768 steps for 768 iterations; 1.21-1.262 ms a pivot "
+                    "through graphs",
 }
 
 
@@ -2839,6 +2855,24 @@ def _spans(torch, fn, names):
     return out, wall, secs
 
 
+def _sharded_versus(torch, psh, graphs, label, lp, gpu):
+    """``solve_tableau_sharded`` on ``lp`` through the graphs and eagerly,
+    bit for bit (``_versus``), with the steps each run took."""
+    def run():
+        steps, t0 = graphs.STEPS, time.perf_counter()
+        out = _sharded_tableau(psh, *lp)
+        torch.cuda.synchronize()
+        return dict(zip(("T", "basis", "obj", "status", "iters", "at_upper"),
+                        out)), {"steps": graphs.STEPS - steps,
+                                "s": time.perf_counter() - t0}
+
+    times, out = _versus(torch, label, run, gpu, order="GE")
+    check(times["graph"]["steps"] == times["eager"]["steps"]
+          == [out["iters"]], f"{label}: steps {times} for {out['iters']} "
+          "iterations")
+    return times
+
+
 def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
     """Phase 20: ``parallel/sharded.py`` on the card, through a one-rank
     NCCL group that ``parallel.distributed.initialize`` builds.  Returns
@@ -2896,16 +2930,17 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
                     f"through NCCL", lambda v=v: (dict(zip(
                         ("T", "basis", "obj", "status", "iters", "at_upper"),
                         _sharded_tableau(psh, *v))), {}), gpu, order="EG")
-        steps = psh._CHUNK
         # The NCCL calls a pivot, counted on the host: the eager chunk
         # (a replayed graph makes no host call).
         graphs._EAGER = True
+        steps = graphs.STEPS
         try:
             wall, device, host = _collectives(
                 torch, lambda: _sharded_tableau(psh, *small["mixed"],
-                                                max_iters=steps))
+                                                max_iters=psh._CHUNK))
         finally:
             graphs._EAGER = False
+        steps = graphs.STEPS - steps
         nccl_dev = [(us, n, name) for us, n, name in device
                     if "nccl" in name.lower()]
         calls = sum(n for n, _ in host.values())
@@ -2972,9 +3007,12 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cached = graphs.cache_bytes() / 2 ** 30
+        steps, chunks = graphs.STEPS, graphs.REPLAYS + graphs.EAGER_CHUNKS
         res, wall, secs = _spans(torch, lambda: psh.solve_arrays_sharded(
             c, A, b, ops, maximize=True, max_iters=512), names)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = graphs.STEPS - steps
+        chunks = graphs.REPLAYS + graphs.EAGER_CHUNKS - chunks
         st, z = _highs(c[0], A[0], b[0], ops, True)
         check(res["status"][0] == 0 == st and res["certified"][0]
               and _gate(z, res["z"][0]),
@@ -2991,6 +3029,13 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
             + f"; peak device memory {peak!r} GiB, of which the graph "
             f"cache held {cached!r} GiB from the earlier solves (this "
             f"solve's own entry is private: its buffers are its tensors)")
+        # A captured chunk's warm-up counts as an eager chunk too.
+        _loop_exit("phase 20 (c)", f"steps in {chunks} chunks (captures' "
+                   f"warm-ups included) for {res['iters']} iterations, "
+                   f"K1-K4 launches {sk.LAUNCHES + pivot_kernel.LAUNCHES}",
+                   steps, res["iters"], _sharded_versus(
+                       torch, psh, graphs, "phase 20 (c), the config-5 cut",
+                       (c, A, b, ops, True), gpu), gpu, exact=True)
         check(pivot_kernel.LAUNCHES == bk.LAUNCHES == bk.LAUNCHES_K3
               == sk.LAUNCHES == 0, "the sharded solves launched a kernel of "
               "the port (they run no kernel of their own)")
@@ -2998,10 +3043,20 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
         # (d) bench_sharded, then one chunk under the profiler.
         t.append(time.perf_counter())
         pivot_kernel.LAUNCHES = 0
+        steps = graphs.STEPS
         rec = bench_sharded(10240, 64, 3, compare_size=8192)
+        steps = graphs.STEPS - steps
         k1 = pivot_kernel.LAUNCHES
         check(k1 == 4 * 64, f"bench_sharded's comparison launched K1 {k1}x")
         d = rec["detail"]
+        # Three LPs, a warm-up solve and three timed ones each, every one
+        # stopped by its cap (the LP's rows stay tight): no verdict step.
+        iters = 4 * (d["steady"]["iters"] + d["with_resync_every_64"]["iters"]
+                     + d["sharded_cmp_iters"])
+        _loop_exit("phase 20 (d)", f"steps of bench_sharded's 12 solves for "
+                   f"{iters} iterations (K1 {k1} in its comparison)", steps,
+                   iters, {"graph": [d["steady"]["per_pivot_ms"] * 1e-3],
+                           "eager": "below"}, gpu, exact=True)
         log(f"[sharded-bench] bench_sharded(10240, 64, 3, compare_size=8192) "
             f"on {gpu}: {rec['value']!r} pivots/s, per pivot "
             f"{d['steady']['per_pivot_ms']!r} ms, effective "
@@ -3069,6 +3124,74 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
         f"{t[2] - t[1]!r} s, (c) {t[3] - t[2]!r} s, (d) {t[4] - t[3]!r} s "
         f"(HiGHS and the generators included)")
     return k1
+
+
+# Phase 21: the measurement runner, one subprocess a mode, at the shapes
+# of phases 13 (with the batched sub-benches of phases 8 and 11), 8, 5,
+# 17, 20, 18 and 19: (label, flags, gate).  Each gate reads the mode's JSON
+# line (its ``detail["launches"]`` counts each kernel's launches).
+def _gate_pivot(rec):
+    d, n = rec["detail"], rec["detail"]["launches"]
+    return (d["batched_n_optimal"] == d["bounded_n_optimal"] == 1024
+            and n["K1"] == 64 * 6 and n["K4"] == 2 * 64 * 6
+            and n["K2"] > 0 and n["K3"] > 0)
+
+
+BENCH_MODES = [
+    ("default mode: the pivot rate at 10241^2 and its four batched "
+     "sub-benches (B=1024 and 16384, classic and bounded)", [],
+     _gate_pivot),
+    ("--batch --batch-size 16384", ["--batch", "--batch-size", "16384"],
+     lambda r: r["vs_baseline"] == 1.0 and r["detail"]["launches"]["K2"]
+     > 0),
+    ("--solve-dense (2048^2)", ["--solve-dense"],
+     lambda r: r["detail"]["status"] == 0 and r["vs_baseline"] == 1.0
+     and r["detail"]["launches"]["K1"] >= r["detail"]["pivots"]),
+    ("--pdhg --reps 3 (65,536 x (20x30))", ["--pdhg", "--reps", "3"],
+     lambda r: r["vs_baseline"] >= 200 / 256),
+    ("--sharded (10240, the 1x1 mesh without a group)", ["--sharded"],
+     lambda r: r["value"] > 0 and r["detail"]["launches"]["K1"] == 4 * 64),
+    ("--stream --stream-total 500000 (2 chunks of 250,000)",
+     ["--stream", "--stream-total", "500000"],
+     lambda r: r["detail"]["converged_frac"] == 1.0
+     and (r["detail"]["exact_recovered"] == 0
+          or r["detail"]["launches"]["K2"] > 0)),
+    ("--stream-exact --stream-total 262144 (4 chunks of 65,536)",
+     ["--stream-exact", "--stream-total", "262144"],
+     lambda r: r["vs_baseline"] == 1.0
+     and r["detail"]["launches"]["K2"] > 0),
+]
+
+
+def phase_bench_runner(torch, gpu):
+    """Phase 21: ``python -m simplex_tpu_torch.bench`` for every mode, each
+    a subprocess that must exit 0 and print one JSON line, logged here,
+    whose gate must hold: every batched instance optimal, the dense solve
+    optimal, PDHG's converged share at phase 17's gate (200 of 256), every
+    instance of the PDHG stream converged or recovered, the exact stream
+    all certified; the kernels the mode runs launched."""
+    from simplex_tpu_torch.runtime import graphs
+
+    # The card's memory goes to the subprocesses.
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    walls = {}
+    for label, flags, gate in BENCH_MODES:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "simplex_tpu_torch.bench", *flags],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        walls[label] = time.perf_counter() - t0
+        lines = out.stdout.splitlines()
+        check(out.returncode == 0 and len(lines) == 1,
+              f"bench {flags}: exit {out.returncode}, {len(lines)} lines; "
+              f"{out.stdout[-2000:]} {out.stderr[-4000:]}")
+        rec = json.loads(lines[0])
+        log(f"[bench] {label} on {gpu}, {walls[label]!r} s: {lines[0]}")
+        check(gate(rec), f"bench {flags}: the mode's gate failed")
+    return walls
 
 
 def main():
@@ -3237,16 +3360,21 @@ def main():
     t_sharded = time.perf_counter()
     k1_sharded = phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmp.name)
     _graph_stats("phase 20")
-    tmp.cleanup()
-    t_end = time.perf_counter()
     log(f"[path] launches on phase 20's path: K1 {k1_sharded} "
         f"(bench_sharded's comparison at 8192^2); K2, K3 and K4 none")
-    log(f"[done] phases 1-20 in {t_end - t_start!r} s, of which phases "
+
+    # 21. the measurement runner, every mode
+    t_bench = time.perf_counter()
+    walls = phase_bench_runner(torch, gpu)
+    tmp.cleanup()
+    t_end = time.perf_counter()
+    log(f"[done] phases 1-21 in {t_end - t_start!r} s, of which phases "
         f"9-11 {t_k4 - t_k3!r} s, 12-13 {t_mps - t_k4!r} s, 14 "
         f"{t_web - t_mps!r} s, 15 {t_new - t_web!r} s, 16 "
         f"{t_pdhg - t_new!r} s, 17 {t_pstream - t_pdhg!r} s, 18 "
-        f"{t_bstream - t_pstream!r} s, 19 {t_sharded - t_bstream!r} s and "
-        f"20 {t_end - t_sharded!r} s")
+        f"{t_bstream - t_pstream!r} s, 19 {t_sharded - t_bstream!r} s, "
+        f"20 {t_bench - t_sharded!r} s and 21 {t_end - t_bench!r} s "
+        f"({', '.join(f'{k.split()[0]} {v:.1f}' for k, v in walls.items())})")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",

@@ -24,17 +24,21 @@ nonzero value, so the packed results are bit-identical to separate ones.
 Differences from the JAX module, all of them in how the loop runs:
 
 * ``shard_map`` over a ``lax.while_loop`` becomes a loop on each rank, on
-  its own device, with one host read of the loop state a chunk of
+  its own device, with one host read of the loop state a chunk of at most
   ``_CHUNK`` steps (``ops/batched.py``'s rule); on the card each chunk,
   its NCCL collectives included, is one replayed CUDA graph
-  (``runtime/graphs.py``).  Every rank issues the
-  same collectives in the same order, so the host branches only on state
-  that is replicated across a row: the resync step (``since_ref`` is
-  counted on the host), the phase flip's reprice (run on every step,
-  masked by ``to_p2``, while the last read showed a RUNNING instance in
-  phase 1) and the chunk lengths.  A step after every instance of a batch
-  shard stopped is a masked no-op, and ``iters`` counts only steps taken
-  while some instance was RUNNING, so it equals the reference's.
+  (``runtime/graphs.py``).  Every rank issues the same collectives in the
+  same order, so the host branches only on state that is replicated
+  across a row: the chunk cuts (a chunk ends before the next drift
+  resync, so the resync is always a chunk's first step), the phase
+  flip's reprice (run on every step, masked by ``to_p2``, while the last
+  read showed a RUNNING instance in phase 1).  Within a chunk the steps
+  stop at the reference's ``cond``: a step runs only while some instance
+  of the batch shard is RUNNING (``graphs.steps``).  The status is
+  computed from row-reduced values and the replicated objective row
+  only, so that flag is the same on every rank of a row, with no
+  collective of its own.  ``iters`` counts the steps taken, as the
+  reference's does.
 * Columns and rows are read with ``gather`` where the reference contracts
   a one-hot vector against the whole tableau for more than one instance.
 * torch tensors carry no sharding: each rank passes its own shards in and
@@ -241,14 +245,16 @@ def _gather_rows_in(x, rg, n_row):
     return out.transpose(0, 1).reshape(x.shape[0], n_row * x.shape[1])
 
 
-def _sharded_chunk(st, cs, static, n_steps: int, rf_steps: tuple,
+def _sharded_chunk(st, cs, static, n_steps: int, resync_first: bool,
                    any_p1: bool):
     """``n_steps`` pivot steps of :func:`_sharded_body`'s loop, the chunk
     body that ``runtime/graphs.py`` runs eagerly or replays as one CUDA
-    graph (with its collectives).  The drift resync runs on the steps in
-    ``rf_steps``, which the host counted; the phase flip's reprice on every
-    step while ``any_p1``.  Returns the new state; ``T`` is updated in
-    place."""
+    graph (with its collectives).  Each step writes its state in place
+    and runs only while some instance of this batch shard is RUNNING
+    (``go``, the reference's ``cond``): a step with none running changes
+    no state tensor.  The drift resync runs on the first step where
+    ``resync_first``; the phase flip's reprice on every step while
+    ``any_p1``."""
     (tol, feas_tol, bland_after, devex, bounded, rg, n_row) = static
     T = st["T"]
     Bl, m_loc, N1 = T.shape
@@ -260,11 +266,6 @@ def _sharded_chunk(st, cs, static, n_steps: int, rf_steps: tuple,
     col_mask_p1, col_mask_p2 = cs["col_mask_p1"], cs["col_mask_p2"]
     obj_row_p1, obj_row_p2 = cs["obj_row_p1"], cs["obj_row_p2"]
     ub, ub_ext = cs["ub"], cs["ub_ext"]
-    basis, obj, phase, status = st["basis"], st["obj"], st["phase"], \
-        st["status"]
-    iters, w, best_obj, no_imp = st["iters"], st["w"], st["best_obj"], \
-        st["no_imp"]
-    at_upper = st["at_upper"]
     eps = torch.finfo(dt).eps
     pack_int = N1 < _EXACT_INT[dt]
     use_j = devex or bounded
@@ -278,7 +279,11 @@ def _sharded_chunk(st, cs, static, n_steps: int, rf_steps: tuple,
     def psum(x):
         return _reduce(x, _SUM, rg)
 
-    for i in range(n_steps):
+    for k in graphs.steps(st, n_steps):
+        basis, obj, phase, status = st["basis"], st["obj"], st["phase"], \
+            st["status"]
+        w, best_obj, no_imp, at_upper = st["w"], st["best_obj"], \
+            st["no_imp"], st["at_upper"]
         live = status == RUNNING
         in_p1 = phase == 1
         col_mask = torch.where(in_p1[:, None], col_mask_p1, col_mask_p2)
@@ -286,8 +291,8 @@ def _sharded_chunk(st, cs, static, n_steps: int, rf_steps: tuple,
         use_bland = no_imp >= bland_after
 
         # ---- periodic drift resync: the RHS column and the objective
-        # row, on the step the host counted (every rank together) ------- #
-        if i in rf_steps:
+        # row, on a chunk's first step (every rank together) ------------ #
+        if k == 0 and resync_first:
             xB_n = _newton_rhs(cs, rg, n_row, T, basis,
                                _at_upper_vec(cs, at_upper) if bounded
                                else None)
@@ -545,10 +550,10 @@ def _sharded_chunk(st, cs, static, n_steps: int, rf_steps: tuple,
         no_imp = torch.where(to_p2, 0, no_imp)
         if devex:
             w = torch.where(to_p2[:, None], 1.0, w)
-        iters = iters + live.any()
-    return {"basis": basis, "obj": obj, "phase": phase, "status": status,
-            "iters": iters, "w": w, "best_obj": best_obj, "no_imp": no_imp,
-            "at_upper": at_upper}
+        graphs.store(st, basis=basis, obj=obj, phase=phase, status=status,
+                     iters=st["iters"] + live.any(), w=w,
+                     best_obj=best_obj, no_imp=no_imp, at_upper=at_upper,
+                     go=(status == RUNNING).any())
 
 
 def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
@@ -608,30 +613,30 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
              "w": torch.ones((Bl, N), dtype=dt, device=dev),
              "best_obj": torch.full((Bl,), inf, dtype=dt, device=dev),
              "no_imp": torch.zeros((Bl,), dtype=i32, device=dev),
-             "at_upper": torch.zeros((Bl, N), dtype=torch.bool, device=dev)}
+             "at_upper": torch.zeros((Bl, N), dtype=torch.bool, device=dev),
+             **graphs.step_state(dev)}
     static = (float(tol), float(feas_tol), int(bland_after), bool(devex),
               bool(bounded), rg, n_row)
 
-    since_ref, iters_h = 1, 0
+    # The reference resyncs on step k where (k + 1) % refactor_every == 0
+    # (every step for a period below 1).  A chunk ends before that step,
+    # so the next one starts with it.
+    period = max(int(refactor_every), 1)
+    next_ref, iters_h = period - 1, 0
     any_run, any_p1 = True, bool(need_p1.any())
     with graphs.Loop("sharded.body", state, cs, static) as lp:
+        st = lp.state
         while any_run and iters_h < max_iters:
-            n_steps = min(_CHUNK, max_iters - iters_h)
-            # The steps of this chunk on which the resync falls, counted on
-            # the host as every rank counts them.
-            rf_steps = []
-            for i in range(n_steps):
-                if since_ref >= refactor_every:
-                    rf_steps.append(i)
-                    since_ref = 1
-                else:
-                    since_ref += 1
-            lp.run(_sharded_chunk, n_steps, tuple(rf_steps), bool(any_p1))
-            iters_h += n_steps
-            running = lp.state["status"] == RUNNING
-            any_run, any_p1 = torch.stack(
-                [running.any(),
-                 (running & (lp.state["phase"] == 1)).any()]).tolist()
+            resync = iters_h == next_ref
+            if resync:
+                next_ref += period
+            lp.run(_sharded_chunk,
+                   min(_CHUNK, next_ref - iters_h, max_iters - iters_h),
+                   resync, bool(any_p1))
+            running = st["status"] == RUNNING
+            any_run, any_p1, iters_h = lp.read(
+                running.any(), (running & (st["phase"] == 1)).any(),
+                st["iters"])
     T, basis, obj = state["T"], state["basis"], state["obj"]
     status, phase, at_upper = state["status"], state["phase"], \
         state["at_upper"]
@@ -647,7 +652,7 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
     if bounded:
         z_min = z_min + _cost_at_upper(cs, raw_obj, at_upper)
     obj[:, -1] = -z_min
-    return T, basis, obj, status, int(state["iters"]), at_upper
+    return T, basis, obj, status, iters_h, at_upper
 
 
 def solve_tableau_sharded(T_rows, basis, obj, col_mask_p1, col_mask_p2,

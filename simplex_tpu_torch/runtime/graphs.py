@@ -32,16 +32,21 @@ bit-equal to an eager one.
 
 The cache key is the loop's name, the shapes, strides and dtypes of every
 buffer, the device, and the Python values the body reads (the ``static``
-tuple: tolerances, caps, flags, the backend); within an entry, each chunk
-variant (its length, and what else the loop passes to ``run``) is one
-graph.  The graphs of one entry share one memory pool (they never run at
-the same time, and every value they leave behind is in the static
-buffers).  The cache holds at most :data:`MAX_ENTRIES` entries and
-:data:`MAX_BYTES` bytes of buffers and pools on the card; the least
+tuple: tolerances, caps, flags, the backend, a process group); within an
+entry, each chunk variant (its length, and what else the loop passes to
+``run``) is one graph.  The graphs of one entry share one memory pool
+(they never run at the same time, and every value they leave behind is in
+the static buffers).  The cache holds at most :data:`MAX_ENTRIES` entries
+and :data:`MAX_BYTES` bytes of buffers and pools on the card; the least
 recently used entries go first.  A solve whose buffers alone exceed the
 budget, or whose entry another solve is using, runs on a private entry
 whose buffers are its own tensors (nothing is copied) and which is dropped
-when the solve ends.
+when the solve ends.  Where a new entry's buffers do not fit on the card,
+the idle entries are dropped and the allocation is tried once more.  An
+idle entry whose ``static`` holds a process group that
+``torch.distributed`` no longer knows (destroyed) is dropped when the
+cache is next used, so no graph outlives the group whose collectives it
+captured.
 
 Loop exit (the reference's ``lax.while_loop`` condition): a chunk body
 runs its steps through :func:`steps`.  Every step writes its new state
@@ -417,15 +422,54 @@ class _Entry:
         return None
 
 
+def _group_gone(value) -> bool:
+    """Whether ``value`` is a process group that ``torch.distributed`` no
+    longer knows (it was destroyed)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and isinstance(value, dist.ProcessGroup)):
+        return False
+    try:
+        dist.get_process_group_ranks(value)
+    except (KeyError, RuntimeError, ValueError):
+        return True
+    return False
+
+
+def _drop(keep: Callable[[tuple, _Entry], bool]):
+    """Drop every idle entry that ``keep`` refuses."""
+    for key in [k for k, e in _CACHE.items()
+                if not e.busy and not keep(k, e)]:
+        del _CACHE[key]
+
+
+def _drop_stale():
+    """Drop the idle entries whose static values hold a destroyed process
+    group (the key's second item is the loop's ``static``)."""
+    _drop(lambda key, e: not any(_group_gone(v) for v in key[1]))
+
+
+def _new_entry(key, state, consts, device) -> _Entry:
+    """A cache entry with buffers of its own; where they do not fit on the
+    card, the idle entries are dropped and the allocation tried once
+    more."""
+    try:
+        return _Entry(key, state, consts, device)
+    except torch.cuda.OutOfMemoryError:
+        _drop(lambda key, e: False)
+        return _Entry(key, state, consts, device)
+
+
 def _acquire(key, state, consts, device) -> _Entry:
     """The cache's entry for ``key``, marked busy and filled with the
     solve's tensors; a private entry where the cached one is in use."""
     with _LOCK:
+        _drop_stale()
         entry = _CACHE.get(key)
         if entry is not None and not entry.busy:
             _CACHE.move_to_end(key)
         elif entry is None and _nbytes(state) + _nbytes(consts) <= MAX_BYTES:
-            entry = _CACHE[key] = _Entry(key, state, consts, device)
+            entry = _CACHE[key] = _new_entry(key, state, consts, device)
         else:
             entry = _Entry(key, state, consts, device, private=True)
         entry.busy = True
@@ -437,15 +481,14 @@ def _acquire(key, state, consts, device) -> _Entry:
 def _release(entry: _Entry):
     with _LOCK:
         entry.busy = False
+        _drop_stale()
         _evict()
 
 
 def _evict():
     """Drop the least recently used idle entries until the cache holds at
     most MAX_ENTRIES entries and MAX_BYTES bytes."""
-    for key in [k for k, e in _CACHE.items()
-                if not e.busy and e.nbytes > MAX_BYTES]:
-        del _CACHE[key]
+    _drop(lambda key, e: e.nbytes <= MAX_BYTES)
 
     def over():
         return (len(_CACHE) > MAX_ENTRIES
@@ -459,11 +502,9 @@ def _evict():
 
 
 def clear():
-    """Drop every idle cache entry (before a process group that the
-    sharded loop's graphs captured is destroyed, for instance)."""
+    """Drop every idle cache entry."""
     with _LOCK:
-        for key in [k for k, e in _CACHE.items() if not e.busy]:
-            del _CACHE[key]
+        _drop(lambda key, e: False)
 
 
 def stats():

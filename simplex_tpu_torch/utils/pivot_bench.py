@@ -1,10 +1,10 @@
 """The pivot-rate measurement: pivots/s at a (size+1)² tableau, held against
 the card's measured streaming ceiling (port of ``bench.py::_hbm_peak``,
-``_median_time``, ``bench_pivot_update`` without its batched sub-benches,
+``_median_time``, ``bench_pivot_update`` with its batched sub-benches,
 and ``_pallas_stream_gbps``, whose Pallas copy is kernel K4 here:
 :func:`hbm_peak`, :func:`median_time`, :func:`bench_pivot_update`,
 :func:`k4_stream_gbps`; :func:`chain_time` is bench.py's ``lax.scan``
-harness).
+harness; :func:`rep_times` gives each repetition's seconds).
 
 The per-pivot rank-1 update moves two touches of the tableau (one read,
 one write); so does one streaming pass ``T + 1e-7``.  The pivot rate's
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +55,20 @@ def median_time(fn: Callable[[], object], reps: int = 5, device="cuda",
     On a CUDA device each call is bracketed by CUDA events and waited for;
     on the CPU the host clock times it.
     """
+    return median_spread(rep_times(fn, reps, device, setup))
+
+
+def median_spread(ts: Sequence[float]) -> Tuple[float, float]:
+    """The median of ``ts`` and their spread ``(max - min) / median``."""
+    med = statistics.median(ts)
+    spread = (max(ts) - min(ts)) / med if med > 0 else 0.0
+    return med, spread
+
+
+def rep_times(fn: Callable[[], object], reps: int = 5, device="cuda",
+              setup: Optional[Callable[[], object]] = None) -> List[float]:
+    """The seconds of each of ``reps`` calls of ``fn``, timed as
+    :func:`median_time` times them."""
     device = torch.device(device)
     ts = []
     for _ in range(reps):
@@ -73,9 +87,15 @@ def median_time(fn: Callable[[], object], reps: int = 5, device="cuda",
             t0 = time.perf_counter()
             fn()
             ts.append(time.perf_counter() - t0)
-    med = statistics.median(ts)
-    spread = (max(ts) - min(ts)) / med if med > 0 else 0.0
-    return med, spread
+    return ts
+
+
+def device_name(device) -> str:
+    """The card's name, or the device's own for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
 
 
 def pivot_problem(size: int, iters: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -145,7 +165,7 @@ def k4_stream_gbps(T: torch.Tensor, iters: int = 64, reps: int = 5,
 
 
 def bench_pivot_update(size: int = 10240, iters: int = 64, reps: int = 5,
-                       device="cuda") -> Dict:
+                       device="cuda", with_batched: bool = True) -> Dict:
     """Steady-state time per rank-1 pivot update on a (size+1)² tableau.
 
     A chain of ``iters`` pivots at varying positions (the port's
@@ -164,6 +184,13 @@ def bench_pivot_update(size: int = 10240, iters: int = 64, reps: int = 5,
     their names and hold torch's streams), plus ``tableau`` and ``basis``:
     the state after the last pivot chain, on the device.  The random
     pivots can drive the tableau to inf or NaN; nothing here checks it.
+
+    ``with_batched``: also bench.py's four batched sub-benches
+    (``utils/solve_bench.py``): the classic and the bounded 30x50 batch at
+    B=1024 and B=16384, under bench.py's ``detail`` keys;
+    ``batched_backend`` and the added ``bounded_backend`` name the kernel
+    that ran (K2, K3).  A sub-bench that fails fails the whole
+    measurement.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -213,9 +240,29 @@ def bench_pivot_update(size: int = 10240, iters: int = 64, reps: int = 5,
         "outofplace_spread": pp_spread,
         "k4_stream_spread": k4_spread,
         "k4_outofplace_spread": k4pp_spread,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else str(dev)),
+        "device": device_name(dev),
     }
+    if with_batched:
+        from .solve_bench import bench_batched_solve, bench_bounded_batched
+
+        bb = bench_batched_solve(reps=max(3, reps - 2), device=dev)
+        vb = bench_bounded_batched(reps=max(3, reps - 2), device=dev)
+        bb16 = bench_batched_solve(B=16384, reps=3, device=dev)
+        vb16 = bench_bounded_batched(B=16384, reps=3, device=dev)
+        detail.update({
+            "batched_lps_per_sec": bb["value"],
+            "batched_backend": bb["detail"]["backend"],
+            "batched_n_optimal": bb["detail"]["n_optimal"],
+            "batched_spread": bb["detail"]["spread"],
+            "bounded_lps_per_sec": vb["value"],
+            "bounded_backend": vb["detail"]["backend"],
+            "bounded_n_optimal": vb["detail"]["n_optimal"],
+            "bounded_spread": vb["detail"]["spread"],
+            "batched_lps_per_sec_16k": bb16["value"],
+            "batched_16k_spread": bb16["detail"]["spread"],
+            "bounded_lps_per_sec_16k": vb16["value"],
+            "bounded_16k_spread": vb16["detail"]["spread"],
+        })
     return {
         "metric": f"pivots_per_sec_{size}x{size}_f32",
         "value": 1.0 / dt,

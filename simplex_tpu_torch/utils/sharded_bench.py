@@ -18,7 +18,8 @@ from ..config import torch_device
 from ..ops.tableau import pivot_update
 from ..parallel.sharded import (compile_sharded, make_mesh,
                                 solve_tableau_sharded, stage_shards)
-from .pivot_bench import chain_time, median_time, pivot_problem
+from .pivot_bench import (chain_time, device_name, median_time,
+                          pivot_problem)
 
 
 def sharded_problem(m: int, device):
@@ -114,11 +115,11 @@ def bench_sharded(size: int = 10240, iters: int = 64, reps: int = 3,
             "compare_at": compare_size,
             "sharded_cmp_GBps": cmp_sharded["effective_GBps"],
             "sharded_cmp_per_pivot_ms": cmp_sharded["per_pivot_ms"],
+            "sharded_cmp_iters": cmp_sharded["iters"],
             "single_kernel_GBps": single_gbps,
             "single_kernel_per_pivot_ms": dt_single * 1e3,
             "single_kernel_spread": single_spread,
             "n_reps": reps,
-            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                       else str(dev)),
+            "device": device_name(dev),
         },
     }

@@ -6,8 +6,9 @@ tests/test_torch_distributed.py).  It imports the port and never JAX.
 
 ``sharded`` joins a gloo group through ``parallel.distributed.initialize``
 at the ``file://`` store STORE and, for every mesh of ``MESHES`` and case
-of ``CASES``, runs ``solve_tableau_sharded`` on this rank's shards (float64)
-and ``solve_arrays_sharded`` with certification, gathers the whole batch
+of ``CASES``, runs ``solve_tableau_sharded`` on this rank's shards (float64),
+recording the ``go`` flag each of its steps left (the loop's exit), and
+``solve_arrays_sharded`` with certification, gathers the whole batch
 and writes everything to ``OUT_DIR/rank{RANK}.npz``.  ``distributed`` takes
 its group from the ``SIMPLEX_TPU_*`` variables and solves ``dist_lp()``
 with ``solve_arrays_distributed`` on a 1x4 mesh.  Both print ``RANK-OK``.
@@ -98,10 +99,21 @@ def _sharded(out_dir, store, rank, world):
     import torch
     from simplex_tpu_torch.parallel import distributed as pd
     from simplex_tpu_torch.parallel import sharded as ps
+    from simplex_tpu_torch.runtime import graphs
 
     torch.set_num_threads(1)
     assert pd.initialize(coordinator_address=f"file://{store}",
                          num_processes=world, process_id=rank, device="cpu")
+    # The go flag after each step the sharded loop runs.
+    gos = []
+    steps = graphs.steps
+
+    def recorded(state, n_steps):
+        for k in steps(state, n_steps):
+            yield k
+            gos.append(bool(state["go"]))
+
+    graphs.steps = recorded
     res = {}
     for shape in MESHES:
         mesh = ps.make_mesh(*shape)
@@ -113,9 +125,11 @@ def _sharded(out_dir, store, rank, world):
                 *shape, dtype=np.float64, ub=raw["ub"])
             shards = [pd.put_global(a, pd.NamedSharding(mesh, spec, "cpu"))
                       for a, spec in zip(arrays, ps.SPECS)]
+            gos.clear()
             T, basis, obj, status, iters, at_up = ps.solve_tableau_sharded(
                 *shards, mesh=mesh, bounded=bounded)
             key = f"{shape[0]}x{shape[1]}_{name}"
+            res[key + "_go"] = np.array(gos, bool)
             res[key + "_basis"] = ps._gather_batch(
                 ps._gather_rows(basis, mesh), mesh).numpy()
             res[key + "_obj"] = ps._gather_batch(obj, mesh).numpy()

@@ -315,6 +315,82 @@ def test_stats_cache_bytes_and_clear(stub):
     assert stub.stats() == [] and stub.cache_bytes() == 0
 
 
+def _failing_empty_like(monkeypatch, failures):
+    """``torch.empty_like`` (the cache's allocation of an entry's buffers)
+    raising the card's out-of-memory error on its first ``failures``
+    calls."""
+    empty_like = torch.empty_like
+    calls = []
+
+    def empty(*args, **kw):
+        calls.append(1)
+        if len(calls) <= failures:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
+        return empty_like(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty_like", empty)
+    return calls
+
+
+def test_a_failed_allocation_drops_the_idle_entries_and_retries_once(
+        stub, monkeypatch):
+    _solve(1)                                   # an idle entry
+    busy = torch.zeros(4, dtype=torch.float64)
+    with graphs.Loop("busy", {"k": busy}, {"inc": torch.ones(4)},
+                     (1.0,)) as lp:
+        lp.run(_toy, 1)
+        empty_like = torch.empty_like
+        calls = _failing_empty_like(monkeypatch, 1)
+        k = _solve(2, size=16)
+        monkeypatch.setattr(torch, "empty_like", empty_like)
+    assert len(calls) == 1 + 2                  # the failure, then k, inc
+    assert torch.equal(k, torch.full((16,), 6.0, dtype=torch.float64))
+    assert torch.equal(busy, torch.full((4,), 1.0, dtype=torch.float64))
+    # The idle entry went; the busy one stayed.
+    assert [(r["loop"], r["buffer_bytes"]) for r in stub.stats()] == [
+        ("busy", 4 * 8 + 4 * 4), ("toy", 16 * 8 + 16 * 4)]
+
+
+def test_a_second_failed_allocation_raises(stub, monkeypatch):
+    _solve(1)
+    _failing_empty_like(monkeypatch, 2)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        _solve(1, size=32)
+    assert stub.stats() == []
+
+
+def test_entries_on_a_destroyed_process_group_are_dropped(stub, tmp_path,
+                                                          monkeypatch):
+    """An entry whose static values hold a process group goes at the
+    cache's next use once the group is destroyed: a subgroup, then the
+    default group."""
+    import torch.distributed as dist
+
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        sub = dist.new_group([0])
+        for group in (sub, dist.group.WORLD):
+            k = torch.zeros(4, dtype=torch.float64)
+            with graphs.Loop("grouped", {"k": k}, {"inc": torch.ones(4)},
+                             (1.0, group)) as lp:
+                lp.run(_toy, 2)
+            assert torch.equal(k, torch.full((4,), 2.0, dtype=torch.float64))
+        _solve(1)
+        assert [r["loop"] for r in stub.stats()] == ["grouped", "grouped",
+                                                      "toy"]
+        dist.destroy_process_group(sub)
+        _solve(1)                         # _acquire and _release drop it
+        assert [r["loop"] for r in stub.stats()] == ["grouped", "toy"]
+        dist.destroy_process_group()
+        _solve(1, size=8)
+        assert [r["loop"] for r in stub.stats()] == ["toy", "toy"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 class _ReplayStub(_StubGraph):
     """A stub whose capture only records the chunk, for many threads."""
 
@@ -459,14 +535,16 @@ def test_graph_solve_is_bit_equal_to_the_eager_solve(cuda, case, dtype,
 @pytest.mark.parametrize("case", ["dense_phase", "dense_phase_dantzig",
                                   "dual", "dual_bounded", "batched_le",
                                   "batched_mixed", "bounded_le",
-                                  "bounded_mixed", "revised"])
+                                  "bounded_mixed", "revised", "sharded",
+                                  "sharded_classic"])
 def test_replayed_chunks_stop_at_the_verdict(cuda, case, dtype,
                                              monkeypatch):
     """Through replayed graphs (the first run captures, the second
     replays every chunk): K1 once a pivot plus once a chunk in the dense
     and dual loops (the artificials' eviction apart), K2 or K3 once an
     iteration in the batched loops, the revised loop's iterations plus at
-    most one step a chunk."""
+    most one step a chunk, the one-rank sharded loop one step an
+    iteration and no kernel of the port."""
     evicted = []
     evict = tt._evict_artificials
 
@@ -498,6 +576,9 @@ def test_replayed_chunks_stop_at_the_verdict(cuda, case, dtype,
     elif case.startswith(("dense", "dual")):
         iters = int(out["iters"])
         assert k1 - sum(evicted) == steps == iters + chunks
+    elif case.startswith("sharded"):
+        iters = int(out["iters"])
+        assert steps == iters > 0 and k1 == k2 == k3 == 0
     else:
         iters = int(out["iters"])
         assert steps == iters > 0 and k1 == 0

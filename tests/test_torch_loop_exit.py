@@ -17,6 +17,11 @@ for each loop that uses it, in float64:
   each phase;
 * a step entered with ``go`` false leaves every state tensor bit-equal.
 
+The row-sharded loop (on the 1x1 mesh, without a process group) runs its
+steps the same way: through the stub its results are the eager ones, and
+it runs one step for each of the JAX ``solve_tableau_sharded``'s
+iterations on the same float64 inputs.
+
 The kernel wrappers count nothing on a CPU tensor, so the wrappers the
 loops call are wrapped here to count each call as a launch.
 """
@@ -31,6 +36,7 @@ import torch
 import _torch_loop_cases as lc
 from _torch_parity import CPU
 from test_torch_graphs import GOLDEN
+from test_torch_sharded import SINGLE, _compiled, _jax_tableau, _step_equal
 
 import simplex_tpu.models.revised as j_rev
 from simplex_tpu.ops import batched as jb
@@ -40,11 +46,13 @@ from simplex_tpu_torch.models import revised as t_rev
 from simplex_tpu_torch.ops import batched as tb
 from simplex_tpu_torch.ops import batched_kernel, pivot_kernel
 from simplex_tpu_torch.ops import tableau as tt
+from simplex_tpu_torch.parallel import sharded as ps
 from simplex_tpu_torch.runtime import graphs
 
 F64 = torch.float64
 LOOP_CASES = ["dense_phase", "dual", "dual_bounded", "batched_le",
-              "bounded_le", "batched_mixed", "bounded_mixed", "revised"]
+              "bounded_le", "batched_mixed", "bounded_mixed", "revised",
+              "sharded", "sharded_classic"]
 
 
 class _Counts:
@@ -173,7 +181,7 @@ def test_stub_graph_solve_gives_the_recorded_results_and_launches(
     # A capture holds a chunk's first step and, where the chunk has more,
     # the loop's body on its go and step count.
     for e in stub._CACHE.values():
-        for (n_steps,), (g, _, launches) in e.graphs.items():
+        for (n_steps, *_), (g, _, launches) in e.graphs.items():
             assert g.loops[0] is None and len(launches) == len(g.loops)
             assert len(g.loops) == min(n_steps, 2)
             for go, count, n in g.loops[1:]:
@@ -311,12 +319,13 @@ def test_a_step_entered_with_go_false_changes_nothing(case, counts,
     every tensor bit-equal but the step count."""
     run = graphs.Loop.run
 
-    def checked_run(self, body, n_steps):
-        run(self, body, n_steps)
+    def checked_run(self, body, n_steps, *variant):
+        run(self, body, n_steps, *variant)
         if bool(self.state["go"]):
             return
         copy = {k: v.clone() for k, v in self.state.items()}
-        graphs._store(copy, body(copy, self.consts, self.static, 1))
+        graphs._store(copy, body(copy, self.consts, self.static, 1,
+                                 *variant))
         for k, v in self.state.items():
             if k != "steps":
                 assert copy[k].dtype == v.dtype and (
@@ -326,3 +335,49 @@ def test_a_step_entered_with_go_false_changes_nothing(case, counts,
     monkeypatch.setattr(graphs.Loop, "run", checked_run)
     assert lc.fingerprint(lc.CASES[case](CPU, F64)) == GOLDEN[case]
     assert counts.noop_checks >= 1
+
+
+@pytest.mark.parametrize("name", sorted(SINGLE))
+def test_sharded_loop_runs_one_step_for_each_reference_iteration(
+        name, counts, stub, monkeypatch):
+    """``tests/test_torch_sharded.py``'s single-rank cases with a resync
+    every 4 steps, so the host cuts chunks at the resyncs: eager, then
+    twice through the stub (captures, then replays).  Every run gives the
+    eager run's bits, is step-equal to the JAX function, and runs exactly
+    one step for each of its iterations: at most the iterations plus one
+    step a chunk, the bound of the other loops, and here no verdict step
+    more, since the verdict's step is an iteration of the reference's
+    ``while_loop`` too."""
+    case = SINGLE[name]()
+    kw = dict(refactor_every=4)
+    ref = _jax_tableau(case, (1, 1), **kw)
+    arrays, bounded = _compiled(case)
+    mesh = ps.make_mesh(1, 1)
+    chunks = []
+    run = graphs.Loop.run
+
+    def counted_run(self, *args):
+        chunks.append(args[1:])
+        run(self, *args)
+
+    monkeypatch.setattr(graphs.Loop, "run", counted_run)
+    runs = []
+    for graphed in (False, True, True):
+        monkeypatch.setattr(graphs, "_graphed", lambda device, g=graphed: g)
+        chunks.clear()
+        steps = counts.steps
+        out = ps.solve_tableau_sharded(*ps.stage_shards(arrays, mesh, CPU),
+                                       mesh=mesh, bounded=bounded, **kw)
+        T, basis, obj, status, iters, at_upper = out
+        _step_equal(ref, basis.numpy(), obj.numpy(), status.numpy(), iters,
+                    at_upper.numpy())
+        runs.append(lc.fingerprint(lc._out(T=T, basis=basis, obj=obj,
+                                           status=status, at_upper=at_upper)))
+        ran = counts.steps - steps
+        assert ran == iters == int(ref[4]) <= iters + len(chunks)
+        # A resync opens its chunk, and no chunk runs past the next one.
+        for n_steps, resync, _ in chunks:
+            assert 1 <= n_steps <= min(ps._CHUNK, kw["refactor_every"])
+        assert sum(r for _, r, _ in chunks) == iters // 4
+    assert stub.CAPTURES > 0 and stub.REPLAYS > 0
+    assert runs[1] == runs[0] and runs[2] == runs[0]

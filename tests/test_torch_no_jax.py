@@ -39,9 +39,13 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.parallel.sharded\n"
             "import simplex_tpu_torch.parallel.distributed\n"
             "import simplex_tpu_torch.utils.sharded_bench\n"
+            "import simplex_tpu_torch.utils.solve_bench\n"
+            "import simplex_tpu_torch.utils.sweep_bench\n"
+            "import simplex_tpu_torch.bench\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith('jax.')\n"
-            "       or m == 'simplex_tpu' or m.startswith('simplex_tpu.')]\n"
+            "       or m == 'simplex_tpu' or m.startswith('simplex_tpu.')\n"
+            "       or m == 'bench']\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -61,6 +65,28 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                     for m in _FORBIDDEN.finditer(fh.read()):
                         offenders.append((os.path.relpath(path, REPO),
                                           m.group(0).strip()))
+    assert not offenders, offenders
+
+
+# The repo-root ``bench.py`` (it imports the JAX package inside its cells).
+_ROOT_BENCH = re.compile(r"^\s*(import\s+bench\b|from\s+bench\b)",
+                         re.MULTILINE)
+
+
+def test_no_source_file_imports_the_root_bench_py():
+    """The runner ``simplex_tpu_torch/bench.py`` and its cells keep their
+    own copies of what they need from the repo's ``bench.py``."""
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                with open(path, encoding="utf-8") as fh:
+                    if _ROOT_BENCH.search(fh.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        if _ROOT_BENCH.search(f.read()):
+            offenders.append("chip_smoke.py")
     assert not offenders, offenders
 
 
@@ -86,5 +112,12 @@ def test_batched_variants_tool_imports_no_jax():
 def test_revised_sizes_tool_imports_no_jax():
     """The revised engine's size probe runs on the GPU machine too."""
     path = os.path.join(REPO, "tools", "revised_sizes.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def test_sharded_steps_tool_imports_no_jax():
+    """The sharded loop's before-and-after probe runs on the GPU machine."""
+    path = os.path.join(REPO, "tools", "sharded_steps.py")
     with open(path, encoding="utf-8") as f:
         assert not _FORBIDDEN.search(f.read())

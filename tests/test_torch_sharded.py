@@ -232,9 +232,23 @@ def eight_ranks(tmp_path_factory):
 @pytest.mark.parametrize("shape", worker.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_eight_gloo_ranks_are_step_equal_to_the_reference(eight_ranks, shape,
                                                           name):
+    """Every rank's results are the same and step-equal to the JAX
+    function.  The loop's ``go`` flag, which ends a chunk at the verdict
+    without a collective of its own, is the same on every rank of a row
+    group at every step: the ranks of one batch shard run the same steps
+    (so the same collectives), one for each iteration of that shard."""
     ranks, refs = eight_ranks
     key = f"{shape[0]}x{shape[1]}_{name}"
-    mine = {k: v for k, v in ranks[0].items() if k.startswith(key + "_")}
+    n_row = shape[1]
+    gos = [r[key + "_go"] for r in ranks]
+    for r, go in enumerate(gos):
+        np.testing.assert_array_equal(go, gos[r - r % n_row],
+                                      err_msg=f"rank {r}")
+        assert len(go) and not go[-1]
+    # iters is batch shard 0's count: one step of its loop each.
+    assert len(gos[0]) == int(ranks[0][key + "_iters"])
+    mine = {k: v for k, v in ranks[0].items()
+            if k.startswith(key + "_") and k != key + "_go"}
     assert mine
     for other in ranks[1:]:
         for k, v in mine.items():

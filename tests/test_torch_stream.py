@@ -202,7 +202,8 @@ def test_bench_pivot_chain_matches_jax_scan(iters):
     np.testing.assert_array_equal(got_T, T_np)
     np.testing.assert_array_equal(got_rs, rs_np)
 
-    out = bench_pivot_update(size=size, iters=iters, reps=2, device="cpu")
+    out = bench_pivot_update(size=size, iters=iters, reps=2, device="cpu",
+                             with_batched=False)
     T_ref, basis_ref = _jax_pivot_chain(T_np, rs_np)
     T = out["tableau"].numpy()
     np.testing.assert_array_equal(np.isnan(T), np.isnan(T_ref))
@@ -227,7 +228,8 @@ DETAIL_KEYS = {
 def test_bench_pivot_update_returns_the_documented_record(monkeypatch):
     monkeypatch.setattr(pivot_kernel, "LAUNCHES", 0)
     monkeypatch.setattr(stream_kernel, "LAUNCHES", 0)
-    out = bench_pivot_update(size=32, iters=4, reps=2, device="cpu")
+    out = bench_pivot_update(size=32, iters=4, reps=2, device="cpu",
+                             with_batched=False)
     assert set(out) == {"metric", "value", "unit", "vs_baseline", "detail",
                         "tableau", "basis"}
     assert out["metric"] == "pivots_per_sec_32x32_f32"
@@ -318,10 +320,11 @@ def test_cuda_pivot_bench_goes_through_k1_and_k4():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     k1, k4 = pivot_kernel.LAUNCHES, stream_kernel.LAUNCHES
-    gpu = bench_pivot_update(size=256, iters=3, reps=2)
+    gpu = bench_pivot_update(size=256, iters=3, reps=2, with_batched=False)
     assert pivot_kernel.LAUNCHES - k1 == 3 * 3
     assert stream_kernel.LAUNCHES - k4 == 2 * 3 * 3
-    cpu = bench_pivot_update(size=256, iters=3, reps=2, device="cpu")
+    cpu = bench_pivot_update(size=256, iters=3, reps=2, device="cpu",
+                             with_batched=False)
     T_ref = cpu["tableau"]
     torch.testing.assert_close(gpu["tableau"].cpu(), T_ref, rtol=0,
                                atol=1e-5 * float(T_ref.abs().max()))
