@@ -143,11 +143,14 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     ``utils/sharded_bench.bench_sharded(10240, 64, 3, compare_size=8192)``
     (K1 launched 256 times by its comparison) and one chunk of 32 pivots
     under ``torch.profiler``: NCCL calls a pivot, their and the update's
-    share of the device time, the busy share.  The sharded solves launch
-    no kernel of the port.  The sharded loop's steps stop at the verdict
-    too: (c) and (d) log its steps against its iterations
-    (``[loop-exit]``), equal, and (c) holds the 32,768-row solve through
-    graphs bit-equal to its eager solve;
+    share of the device time, the busy share; (e) ``python -m
+    simplex_tpu_torch.utils.sharded_cards --ranks 1 --phases abc`` (the
+    runner of solves across cards, as one rank: its collectives, its loop
+    through graphs against eager chunks, its layout against HiGHS) must
+    exit 0.  The sharded solves launch no kernel of the port.  The
+    sharded loop's steps stop at the verdict too: (c) and (d) log its
+    steps against its iterations (``[loop-exit]``), equal, and (c) holds
+    the 32,768-row solve through graphs bit-equal to its eager solve;
 21. the measurement runner ``python -m simplex_tpu_torch.bench``, one
     subprocess a mode (``BENCH_MODES``): the default mode (phase 13's
     pivot rate with the four batched sub-benches of phases 8 and 11),
@@ -939,22 +942,6 @@ def bench_batch(B, m=30, n=50):
     return c, A, b, np.full((m,), -1)
 
 
-def mixed_batch(B, m=30, n=50, seed=11):
-    """``tests/_torch_parity.py::seeded_lp``'s recipe at a fixed shape:
-    mixed ``<=`` / ``=`` / ``>=`` rows that hold at a random nonnegative
-    point (feasible), mixed cost signs (some unbounded), maximize or not."""
-    rng = np.random.default_rng(seed)
-    A = rng.uniform(-1, 3, size=(B, m, n)).round(2)
-    x0 = rng.uniform(0, 2, size=(B, n))
-    ops = rng.choice([-1, 0, 1], size=(B, m), p=[0.6, 0.15, 0.25])
-    b = np.einsum("bmn,bn->bm", A, x0)
-    slack = rng.uniform(0, 2, size=(B, m))
-    b = np.where(ops == -1, b + slack, np.where(ops == 1, b - slack, b))
-    c = rng.uniform(-1, 2, size=(B, n)).round(2)
-    maximize = rng.integers(0, 2, size=B).astype(bool)
-    return c, A, b, ops, maximize
-
-
 def _highs(c, A, b, ops, maximize):
     """(status, z) of HiGHS on one LP (presolve off: with it, HiGHS may
     call an unbounded LP infeasible)."""
@@ -1324,25 +1311,6 @@ def bench_bounded_batch(B, m=30, n=50):
     ub = np.where(rng.random((B, n)) < 0.6,
                   rng.uniform(1.0, 3.0, (B, n)), np.inf).astype(np.float32)
     return c, A, b, np.full((m,), -1), ub
-
-
-def mixed_bounded_batch(B, m=30, n=50, seed=77):
-    """``tests/test_bounds.py::test_batched_native_bounds_vs_scipy``'s
-    construction at a fixed shape: rows that hold at a random point, shared
-    mixed operators, minimized, 60 % of the variables bounded (half of
-    them tight at the optimum)."""
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, m, n)).round(2)
-    x0 = rng.uniform(0.2, 2.0, size=(B, n))
-    ops = rng.choice([-1, 0, 1], size=m, p=[0.6, 0.1, 0.3])
-    slack = rng.uniform(0.1, 1.0, size=(B, m))
-    b = np.einsum("bmn,bn->bm", A, x0) + np.where(
-        ops == -1, slack, np.where(ops == 1, -slack, 0.0))
-    c = rng.normal(size=(B, n)).round(2)
-    ub = np.where(rng.random((B, n)) < 0.6,
-                  x0 + rng.uniform(-0.3, 1.5, size=(B, n)).clip(0.01),
-                  np.inf)
-    return c, A, b, ops, ub
 
 
 def general_bounded_lp(seed, rows=(3, 9), boxes=True):
@@ -2758,49 +2726,45 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
 SHARDED_ROWS = 32768
 
 
+def _lps():
+    """The runner of solves across cards, whose generators make phase 20's
+    LPs and the mixed batches of phases 8 and 11 (imported when first
+    used: the package reads ``SIMPLEX_TPU_OUTPUT_DIR`` as it loads)."""
+    from simplex_tpu_torch.utils import sharded_cards
+
+    return sharded_cards
+
+
 def config5_lp(m=SHARDED_ROWS, n=20, seed=42):
-    """BASELINE config 5's generator (``tests/test_sharded.py:296-317``):
-    A ~ U(0.05, 1), b = A x0 + U(0.05, 0.5), all ``<=``, maximized."""
-    rng = np.random.default_rng(seed)
-    A = rng.uniform(0.05, 1.0, size=(1, m, n))
-    x0 = rng.uniform(0.5, 1.5, size=n)
-    b = (A[0] @ x0 + rng.uniform(0.05, 0.5, size=m))[None, :]
-    c = rng.uniform(0.1, 1.0, size=(1, n))
-    return c, A, b, np.full(m, -1)
+    """BASELINE config 5's generator (``tests/test_sharded.py:305-312``),
+    cut to ``SHARDED_ROWS`` rows."""
+    return _lps().config5_lp(m, n, seed)
 
 
-def many_pivot_lp(m=8192, n=192, seed=71):
-    """``tests/test_sharded.py:173``'s LP: about n tight rows, hundreds of
-    pivots."""
-    rng = np.random.default_rng(seed)
-    A = rng.uniform(0.05, 1.0, size=(1, m, n))
-    x0 = rng.uniform(0.5, 1.5, size=n)
-    slack = np.where(rng.random(m) < n / m * 1.5, 0.0,
-                     rng.uniform(0.5, 5.0, size=m))
-    b = (A[0] @ x0 + slack)[None, :]
-    c = rng.uniform(0.1, 1.0, size=(1, n))
-    return c, A, b, np.full(m, -1)
+def many_pivot_lp():
+    """``tests/test_sharded.py:173``'s 8192 x 192 LP (seed 71)."""
+    return _lps().many_pivot_lp()
 
 
-def mechanism_lp(m=16384, n=8, seed=33):
-    """``tests/test_sharded.py:147``'s LP: an interior start, few pivots."""
-    rng = np.random.default_rng(seed)
-    A = rng.uniform(0.05, 1.0, size=(1, m, n))
-    b = rng.uniform(m * 0.3, m * 0.6, size=(1, m))
-    c = rng.uniform(0.1, 1.0, size=(1, n))
-    return c, A, b, np.full(m, -1)
+def mechanism_lp():
+    """``tests/test_sharded.py:147``'s 16384 x 8 LP (seed 33)."""
+    return _lps().mechanism_lp()
 
 
-def bound_flip_lp(B=2, m=256, n=12, seed=13):
-    """``tests/test_sharded.py:248``'s tall bounded LPs (bound flips)."""
-    rng = np.random.default_rng(seed)
-    A = rng.uniform(0.05, 1.0, size=(B, m, n))
-    x0 = rng.uniform(0.5, 1.5, size=(B, n))
-    b = np.einsum("bmn,bn->bm", A, x0) + rng.uniform(0.1, 0.8, (B, m))
-    c = rng.uniform(0.1, 1.0, size=(B, n))
-    ub = np.where(rng.random((B, n)) < 0.7,
-                  x0 * rng.uniform(0.7, 1.3, (B, n)), np.inf)
-    return c, A, b, np.full(m, -1), ub
+def bound_flip_lp():
+    """``tests/test_sharded.py:248``'s 2 x 256 x 12 bounded LPs (seed 13)."""
+    return _lps().bound_flip_lp()
+
+
+def mixed_batch(B):
+    """Mixed-row 30x50 LPs (seed 11): the runner's ``mixed_batch``."""
+    return _lps().mixed_batch(B)
+
+
+def mixed_bounded_batch(B):
+    """Mixed-row bounded 30x50 LPs (seed 77): the runner's
+    ``mixed_bounded_batch``."""
+    return _lps().mixed_bounded_batch(B)
 
 
 def _sharded_tableau(psh, c, A, b, ops, maximize, ub=None, **kw):
@@ -3120,9 +3084,22 @@ def phase_sharded(torch, pt, pivot_kernel, bk, sk, gpu, tmpdir):
         graphs.clear()
         dist.destroy_process_group()
     t.append(time.perf_counter())
+    # (e) the runner of solves across cards, as one rank on this card: its
+    # collectives, its loop through graphs against eager chunks and its
+    # layout against HiGHS, on (b)'s LPs and the mixed batches.
+    out = subprocess.run(
+        [sys.executable, "-m", "simplex_tpu_torch.utils.sharded_cards",
+         "--ranks", "1", "--phases", "abc", "--timeout", "400"],
+        capture_output=True, text=True, timeout=500,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in out.stdout.splitlines():
+        log(f"[sharded-cards] {line}")
+    check(out.returncode == 0, f"sharded_cards --ranks 1 exited with "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    t.append(time.perf_counter())
     log(f"[sharded] phase 20 on {gpu}: (a) {t[1] - t[0]!r} s, (b) "
-        f"{t[2] - t[1]!r} s, (c) {t[3] - t[2]!r} s, (d) {t[4] - t[3]!r} s "
-        f"(HiGHS and the generators included)")
+        f"{t[2] - t[1]!r} s, (c) {t[3] - t[2]!r} s, (d) {t[4] - t[3]!r} s, "
+        f"(e) {t[5] - t[4]!r} s (HiGHS and the generators included)")
     return k1
 
 

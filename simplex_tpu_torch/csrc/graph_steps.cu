@@ -18,9 +18,16 @@
 // The parts are cloned into the chain (child graph nodes), so the caller
 // may destroy them; the memory they address (torch's graph pool) must
 // outlive the chain.  Every entry point returns a cudaError_t.
+//
+// graph_node_counts lists what a captured part holds, by node type: a
+// conditional node's body takes only some types (kernels, memsets,
+// memcopies, empty, child graph and conditional nodes), so a part with,
+// say, an event or host node cannot be a loop's body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 namespace {
 
@@ -79,6 +86,27 @@ cudaError_t append(cudaGraph_t chain, cudaGraphNode_t* last,
   return add_set(&set, body, &node, 1, handle, flag, count, limit);
 }
 
+// Adds the nodes of `graph` to counts[type], recursing into child graphs.
+cudaError_t count_nodes(cudaGraph_t graph, int64_t n_types, int64_t* counts) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(graph, nodes.data(), &n);
+  for (size_t i = 0; i < n && err == cudaSuccess; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) break;
+    if (static_cast<int64_t>(type) < n_types) ++counts[type];
+    if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = count_nodes(child, n_types, counts);
+    }
+  }
+  return err;
+}
+
 }  // namespace
 
 // parts[i] is a cudaGraph_t.  flags[i] is 0 for a part that runs once, or
@@ -122,4 +150,12 @@ extern "C" int graph_chain_destroy(void* exec, void* stream) {
   cudaError_t err = cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
   cudaError_t err2 = cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
   return err != cudaSuccess ? err : err2;
+}
+
+// Counts the nodes of the cudaGraph_t `graph` by cudaGraphNodeType into
+// counts[0 .. n_types) (zeroed first), the nodes of child graphs included.
+extern "C" int graph_node_counts(uint64_t graph, int64_t n_types,
+                                 int64_t* counts) {
+  for (int64_t t = 0; t < n_types; ++t) counts[t] = 0;
+  return count_nodes(reinterpret_cast<cudaGraph_t>(graph), n_types, counts);
 }

@@ -41,6 +41,17 @@ def initialize(coordinator_address: Optional[str] = None,
     collectives still run through the backend.  A second call is a no-op.
     ``device``: ``"cuda"`` (NCCL, on the card ``process_id`` modulo the
     cards present; raises without a GPU) or ``"cpu"`` (gloo).
+
+    Under NCCL it sets ``NCCL_GRAPH_MIXING_SUPPORT=0`` unless the
+    environment sets it.  With that support on, NCCL adds an event-record
+    and an event-wait node to every call a CUDA graph captures, and a
+    WHILE node's body takes neither, so the sharded loop's chunk could not
+    be built (``runtime/graphs.py``; CUDA error 1 on four cards).  Off, a
+    captured call is kernel and copy nodes only.  NCCL then asks that no
+    eager NCCL call follow a graph launch that is still running, and that
+    no two graph launches run at once: the solve loops launch one graph a
+    chunk on one stream and read its state on the host before any other
+    call.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "SIMPLEX_TPU_COORDINATOR")
@@ -68,6 +79,7 @@ def initialize(coordinator_address: Optional[str] = None,
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index if dev.index is not None
                               else process_id % torch.cuda.device_count())
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
         backend = "nccl"
     else:
         backend = "gloo"

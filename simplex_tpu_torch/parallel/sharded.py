@@ -456,11 +456,11 @@ def _sharded_chunk(st, cs, static, n_steps: int, resync_first: bool,
         infeasible = p1_done & (-obj[:, -1] > feas_tol * cs["b_scale"])
         to_p2 = p1_done & ~infeasible
         finish_p2 = want_stop & ~in_p1
-        status = torch.where(
-            infeasible, STATUS_INFEASIBLE,
-            torch.where(finish_p2 & optimal, STATUS_OPTIMAL,
-                        torch.where(finish_p2 & unbounded,
-                                    STATUS_UNBOUNDED, status)))
+        # The step's last writes go straight into the state tensors
+        # (in place or ``out=``): no copy ends the step.
+        status = status.masked_fill_(finish_p2 & unbounded, STATUS_UNBOUNDED) \
+            .masked_fill_(finish_p2 & optimal, STATUS_OPTIMAL) \
+            .masked_fill_(infeasible, STATUS_INFEASIBLE)
         active = live & ~want_stop
         if bounded:
             do_flip_now = active & do_flip
@@ -478,7 +478,7 @@ def _sharded_chunk(st, cs, static, n_steps: int, resync_first: bool,
             w_new = torch.where(col_idx == sl, 1.0, w_new)
             w_new = torch.where(w_new.amax(dim=1, keepdim=True) > 1e8,
                                 1.0, w_new)
-            w = torch.where(do_pivot_now[:, None], w_new, w)
+            w = torch.where(do_pivot_now[:, None], w_new, w, out=w)
 
         # ---- rank-1 update in place, masked (no communication) ----- #
         # A masked instance's column is scaled to 0 and its row to 0,
@@ -508,14 +508,15 @@ def _sharded_chunk(st, cs, static, n_steps: int, resync_first: bool,
             T[:, :, -1] = torch.where(
                 do_pivot_now[:, None], rhs_piv,
                 torch.where(do_flip_now[:, None], rhs_flip, rhs_loc))
-        basis = torch.where(own_piv, s[:, None].to(i32), basis)
+        basis = torch.where(own_piv, s[:, None].to(i32), basis, out=basis)
 
         # ---- objective row (replicated) ---------------------------- #
         obj_new = obj - obj.gather(1, sl) * piv_row
         if bounded:
             z_piv = z_old + sigma * rc_s * step
             z_flip = z_old + sigma * rc_s * ub_s_safe
-            obj = torch.where(do_pivot_now[:, None], obj_new, obj)
+            obj = torch.where(do_pivot_now[:, None], obj_new, obj,
+                              out=st["obj"])
             obj[:, -1] = torch.where(
                 do_pivot_now, -z_piv,
                 torch.where(do_flip_now, -z_flip, obj[:, -1]))
@@ -528,15 +529,16 @@ def _sharded_chunk(st, cs, static, n_steps: int, resync_first: bool,
             at_upper = torch.where(
                 do_pivot_now[:, None], at_up_piv,
                 torch.where(do_flip_now[:, None], at_upper ^ s_hot,
-                            at_upper))
+                            at_upper), out=at_upper)
         else:
-            obj = torch.where(active[:, None], obj_new, obj)
+            obj = torch.where(active[:, None], obj_new, obj, out=st["obj"])
 
         # ---- objective progress (stall-gated Bland) ---------------- #
         obj_val = -obj[:, -1]
         improved = obj_val < best_obj - tol * (1.0 + best_obj.abs())
-        best_obj = torch.minimum(best_obj, obj_val)
-        no_imp = torch.where(improved, 0, no_imp + active.to(i32))
+        best_obj = torch.minimum(best_obj, obj_val, out=best_obj)
+        no_imp = torch.add(no_imp, active.to(i32), out=no_imp) \
+            .masked_fill_(improved, 0)
 
         # ---- phase flip: the phase-2 objective, priced out; masked by
         # to_p2 and run by every rank while any may flip ------------- #
@@ -544,16 +546,14 @@ def _sharded_chunk(st, cs, static, n_steps: int, resync_first: bool,
             priced = _reprice(cs, rg, T, basis, obj_row_p2)
             if bounded:
                 priced[:, -1] -= _cost_at_upper(cs, obj_row_p2, at_upper)
-            obj = torch.where(to_p2[:, None], priced, obj)
-            phase = torch.where(to_p2, 2, phase)
-        best_obj = torch.where(to_p2, inf, best_obj)
-        no_imp = torch.where(to_p2, 0, no_imp)
+            torch.where(to_p2[:, None], priced, obj, out=obj)
+            phase.masked_fill_(to_p2, 2)
+        best_obj.masked_fill_(to_p2, inf)
+        no_imp.masked_fill_(to_p2, 0)
         if devex:
-            w = torch.where(to_p2[:, None], 1.0, w)
-        graphs.store(st, basis=basis, obj=obj, phase=phase, status=status,
-                     iters=st["iters"] + live.any(), w=w,
-                     best_obj=best_obj, no_imp=no_imp, at_upper=at_upper,
-                     go=(status == RUNNING).any())
+            w.masked_fill_(to_p2[:, None], 1.0)
+        st["iters"].add_(live.any())
+        graphs.store(st, go=(status == RUNNING).any())
 
 
 def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,

@@ -516,6 +516,46 @@ def stats():
                  "pool_bytes": e.pool_bytes} for key, e in _CACHE.items()]
 
 
+# cudaGraphNodeType's names, in its order.
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semaphore_signal",
+              "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def node_types(raw_graph: int) -> Dict[str, int]:
+    """The nodes of a captured ``cudaGraph_t`` (``CUDAGraph.raw_cuda_graph()``
+    of a graph captured with ``keep_graph=True``) counted by type, those of
+    its child graphs included; types it does not hold are left out."""
+    from . import kernels
+
+    counts = (ctypes.c_int64 * (len(NODE_TYPES) + 2))()
+    err = kernels.library().graph_node_counts(raw_graph, len(counts), counts)
+    if err != 0:
+        raise RuntimeError(f"reading a graph's nodes failed: CUDA error {err}")
+    names = NODE_TYPES + tuple(f"type_{t}" for t in range(len(NODE_TYPES),
+                                                           len(counts)))
+    return {name: int(n) for name, n in zip(names, counts) if n}
+
+
+def captured_parts(name: str) -> list:
+    """What each captured chunk of the cached entries of loop ``name``
+    holds: one ``(variant, parts)`` a chunk variant, ``parts`` a list of
+    ``(kind, node_types)`` in capture order, ``kind`` ``"once"`` or
+    ``"while"`` (the body of the WHILE node).  Empty on the CPU."""
+    with _LOCK:
+        entries = [e for key, e in _CACHE.items() if key[0] == name]
+    out = []
+    for entry in entries:
+        for variant, (graph, _, _) in entry.graphs.items():
+            parts = ([(graph.graph, None)] if graph.graph is not None
+                     else graph._parts)
+            out.append((variant, [
+                ("once" if loop is None else "while",
+                 node_types(g.raw_cuda_graph())) for g, loop in parts]))
+    return out
+
+
 def cache_bytes() -> int:
     """The bytes the cache holds on the card."""
     with _LOCK:

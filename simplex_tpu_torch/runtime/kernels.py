@@ -130,10 +130,11 @@ ARGTYPES = {
     "k4_stream_copy_f32": [_P, _P, _I64, _P],
     "k4_stream_copy_f64": [_P, _P, _I64, _P],
     # csrc/graph_steps.cu: n, parts, flags, counts, limits, exec_out,
-    # stream; exec, stream
+    # stream; exec, stream; graph, n_types, counts
     "graph_chain_build": [_I64, _P, _P, _P, _P, _P, _P],
     "graph_chain_launch": [_P, _P],
     "graph_chain_destroy": [_P, _P],
+    "graph_node_counts": [_U64, _I64, _P],
 }
 
 

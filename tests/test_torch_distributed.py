@@ -36,6 +36,39 @@ def test_initialize_without_env_is_a_no_op(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+@pytest.mark.parametrize("preset", [None, "1"])
+def test_an_nccl_group_turns_off_graph_mixing_unless_set(monkeypatch,
+                                                         preset):
+    """NCCL's graph-mixing support puts event nodes into every captured
+    call, which a WHILE body does not take; the user's own setting wins."""
+    calls = []
+    for k in _ENV:
+        monkeypatch.delenv(k, raising=False)
+    if preset is None:
+        monkeypatch.delenv("NCCL_GRAPH_MIXING_SUPPORT", raising=False)
+    else:
+        monkeypatch.setenv("NCCL_GRAPH_MIXING_SUPPORT", preset)
+    monkeypatch.setattr(pd, "torch_device", lambda name: torch.device(name))
+    monkeypatch.setattr(torch.cuda, "set_device", calls.append)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    assert pd.initialize("file:///nowhere", 4, 3, device="cuda")
+    assert calls == [3, ("nccl", dict(init_method="file:///nowhere",
+                                      world_size=4, rank=3))]
+    assert os.environ["NCCL_GRAPH_MIXING_SUPPORT"] == (preset or "0")
+
+
+def test_gloo_leaves_the_nccl_setting_alone(monkeypatch):
+    monkeypatch.delenv("NCCL_GRAPH_MIXING_SUPPORT", raising=False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: None)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    assert pd.initialize("file:///nowhere", 2, 0, device="cpu")
+    assert "NCCL_GRAPH_MIXING_SUPPORT" not in os.environ
+
+
 def test_put_global_gives_each_rank_its_shard():
     x = np.arange(4 * 8 * 3, dtype=np.float64).reshape(4, 8, 3)
     for k in range(8):

@@ -73,8 +73,16 @@ def test_argtypes_match_the_c_signature(name):
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_every_entry_point_ends_with_the_stream(name):
-    """Each kernel launches on the caller's stream, passed last."""
+    """Each kernel launches on the caller's stream, passed last (the graph
+    reader ``graph_node_counts`` enqueues nothing: its last argument is its
+    output array)."""
     assert ENTRY_POINTS[name][1][-1] == "pointer"
+
+
+def test_graph_node_counts_reads_one_graph_into_an_array():
+    """A ``cudaGraph_t`` (a ``uint64``), the array's length, the array."""
+    assert ENTRY_POINTS["graph_node_counts"] == (
+        "int", ["uint64", "int64", "pointer"])
 
 
 def test_batched_steps_take_no_scratch():

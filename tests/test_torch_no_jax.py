@@ -39,6 +39,7 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.parallel.sharded\n"
             "import simplex_tpu_torch.parallel.distributed\n"
             "import simplex_tpu_torch.utils.sharded_bench\n"
+            "import simplex_tpu_torch.utils.sharded_cards\n"
             "import simplex_tpu_torch.utils.solve_bench\n"
             "import simplex_tpu_torch.utils.sweep_bench\n"
             "import simplex_tpu_torch.bench\n"
