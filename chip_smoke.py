@@ -156,9 +156,32 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     pivot rate with the four batched sub-benches of phases 8 and 11),
     ``--batch`` at 16,384, ``--solve-dense`` (phase 5's LP), ``--pdhg``
     (phase 17's cell), ``--sharded`` (phase 20's 10240), ``--stream`` at
-    500,000 and ``--stream-exact`` at 262,144 (phases 18 and 19's cuts);
-    each must exit 0 and print one JSON line, logged as ``[bench]``, and
-    pass its gate.
+    250,000 (one chunk) and ``--stream-exact`` at 262,144 (phases 18 and
+    19's cuts); each must exit 0 and print one JSON line, logged as
+    ``[bench]``, and pass its gate;
+22. many users at once (``[load]`` lines), every request through the web
+    app, whose report keeps ``LOAD_HISTORY`` pivots
+    (``SIMPLEX_TPU_MAX_HISTORY``): users of the form on the three anchors
+    (``/new`` and ``/solve``) and users who upload one of eight
+    netlib-scale MPS files (``/load`` and ``/solve``; ``web_netlib_mps``:
+    ``generate_netlib_adversarial`` with its free columns boxed, as the
+    web's ``/load`` takes them).  Each request is first served alone
+    (anchors at their known Z, the LPs within 1e-6 (1+|z|) of HiGHS, read
+    from the saved report), and each library call of (c) alone.  Then (a)
+    16 users at once on ``TestClient``s of one ``init_app()`` (14 on the
+    form, 2 uploads), twice, then 20 s of 4 arrivals a second (one in 16
+    an upload); (b) 8 users over HTTP (6 on the form, 2 uploads; ``urllib``
+    with cookie jars, against ``simplex_tpu_torch.web_app.app`` behind a
+    threading ``wsgiref`` server on a free local port); every answer of
+    (a) and (b) must equal the request's alone (no status >= 500, no
+    flashed solve error); (c) 4 threads each calling ``solve_lp`` on a
+    distinct 2048^2 LP (phase 5's generator, seeds 0-3), one of them also
+    ``solve_arrays`` on phase 8's batch, and a fifth thread a
+    ``solve_arrays_stream`` sweep of 4 x 16384 LPs beside their captures:
+    each result bit-equal to the call alone, K1's and K2's launches the
+    solo runs' sums.  Logs latencies (p50, p95, max), captures and replays
+    a request, the cache's entries and bytes, peak device memory and host
+    RSS growth.
 
 Every solve loop runs each chunk of device steps as one replayed CUDA graph
 (``simplex_tpu_torch/runtime/graphs.py``).  Phases 5, 8, 11, 14, 15, 16,
@@ -192,11 +215,14 @@ that the kernel record (JSON); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -491,9 +517,10 @@ def phase_cli(cli, storage_mod, tmpdir):
             f"({len(report['tablas_intermedias'])} tables)")
 
 
-def dense_lp(size):
-    """The LP of bench.py::bench_dense_solve (same generator and seed)."""
-    rng = np.random.default_rng(0)
+def dense_lp(size, seed=0):
+    """The LP of bench.py::bench_dense_solve (same generator; its seed is
+    0)."""
+    rng = np.random.default_rng(seed)
     m = n = size
     A = rng.uniform(0.05, 1.0, size=(m, n))
     b = rng.uniform(m * 0.3, m * 0.6, size=m)
@@ -3128,8 +3155,8 @@ BENCH_MODES = [
      lambda r: r["vs_baseline"] >= 200 / 256),
     ("--sharded (10240, the 1x1 mesh without a group)", ["--sharded"],
      lambda r: r["value"] > 0 and r["detail"]["launches"]["K1"] == 4 * 64),
-    ("--stream --stream-total 500000 (2 chunks of 250,000)",
-     ["--stream", "--stream-total", "500000"],
+    ("--stream --stream-total 250000 (1 chunk of 250,000)",
+     ["--stream", "--stream-total", "250000"],
      lambda r: r["detail"]["converged_frac"] == 1.0
      and (r["detail"]["exact_recovered"] == 0
           or r["detail"]["launches"]["K2"] > 0)),
@@ -3169,6 +3196,518 @@ def phase_bench_runner(torch, gpu):
         log(f"[bench] {label} on {gpu}, {walls[label]!r} s: {lines[0]}")
         check(gate(rec), f"bench {flags}: the mode's gate failed")
     return walls
+
+
+# Phase 22: many users at once on one card, every request through the web
+# app: users of the form on the three anchors (``/new`` and ``/solve``)
+# and users who upload a netlib-scale MPS file (``/load`` and ``/solve``).
+# The app serves with its report's pivot history capped at LOAD_HISTORY
+# (``SIMPLEX_TPU_MAX_HISTORY``, read by ``SolverConfig.from_env``): at the
+# default 64 a netlib-scale ``/solve`` renders a page of about 400 MB on
+# the host (ROADMAP.md Queue 3 item 7).  The mix: one upload for every
+# seven form users in the waves, three over HTTP, fifteen in the
+# sustained stretch.  The form is the app's front page and the common
+# request; an upload holds the interpreter and the one device stream for
+# seconds, and a larger share would take the phase past its share of the
+# run's time limit.  (a) LOAD_USERS threads in process, one request each,
+# in two waves (the second meets what the first left in the graph cache),
+# then a sustained stretch; (b) the same kinds of request over HTTP; (c)
+# library callers at full width, with a stream sweep beside their
+# captures.
+LOAD_USERS = 16
+LOAD_NETLIB = 8
+LOAD_HISTORY = 2
+LOAD_SUSTAIN_S = 20.0
+LOAD_RATE = 4.0                # arrivals a second in the sustained stretch
+HTTP_USERS = 8
+LIBRARY_SEEDS = (0, 1, 2, 3)   # phase 5's generator, one LP each ...
+LIBRARY_SIZE = 2048            # ... at phase 5's size
+LIBRARY_BATCH = 16384          # phase 8's batch
+SWEEP_CHUNKS = 4               # the sweep of (c): bench_stream_exact's
+SWEEP_CHUNK = 16384            # generator, 4 batches of 16384 x (30x50)
+_SUMMARY = re.compile(r'<section class="solution-summary.*?</section>', re.S)
+_FLASH = re.compile(r'<div class="flash flash-[a-z]+">(.*?)</div>', re.S)
+_SOLVE_ERROR = "Error durante la resolución"
+
+
+def web_netlib_mps(mps, seed, box=50.0):
+    """The MPS text of ``utils/mps.py::generate_netlib_adversarial(seed)``
+    with its free columns boxed, as the web's ``/load`` takes no free
+    column: FR to [-box, box], MI to [-box, inf).  The planted point
+    (|x0| <= 20 on those columns) stays feasible."""
+    out = []
+    for line in mps.generate_netlib_adversarial(seed).splitlines():
+        f = line.split()
+        if len(f) == 3 and f[0] in ("FR", "MI") and f[1] == "BND":
+            out.append(f" LO BND {f[2]} {-box:g}")
+            if f[0] == "FR":
+                out.append(f" UP BND {f[2]} {box:g}")
+        else:
+            out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def _highs_bounds(lp, presolve):
+    """(status, z) of HiGHS on an LP with bounds."""
+    from scipy.optimize import linprog
+
+    le, ge, eq = lp.ops == -1, lp.ops == 1, lp.ops == 0
+    ref = linprog(-lp.c if lp.maximize else lp.c,
+                  A_ub=np.vstack([lp.A[le], -lp.A[ge]]),
+                  b_ub=np.concatenate([lp.b[le], -lp.b[ge]]),
+                  A_eq=lp.A[eq] if eq.any() else None,
+                  b_eq=lp.b[eq] if eq.any() else None,
+                  bounds=list(zip(lp.lb, np.where(np.isfinite(lp.ub), lp.ub,
+                                                  None))),
+                  method="highs", options={"presolve": presolve})
+    if ref.status != 0:
+        return ref.status, None
+    return 0, -ref.fun if lp.maximize else ref.fun
+
+
+def load_problems(mps):
+    """The first LOAD_NETLIB seeds of :func:`web_netlib_mps` on which HiGHS
+    with and without presolve agree (an oracle that disagrees with itself
+    anchors nothing): ``[(seed, MPS text, lp, z_ref)]``, and the seeds left
+    out with both of HiGHS's answers."""
+    out, skipped, seed = [], [], 0
+    while len(out) < LOAD_NETLIB:
+        check(seed < 4 * LOAD_NETLIB, f"HiGHS agrees with itself on "
+              f"{len(out)} of the first {seed} seeds")
+        text = web_netlib_mps(mps, seed)
+        lp = mps.parse_mps(text)
+        check(not lp.has_free, f"seed {seed}: free columns left")
+        on, off = _highs_bounds(lp, True), _highs_bounds(lp, False)
+        if on[0] == off[0] == 0 and _gate(on[1], off[1]):
+            out.append((seed, text, lp, on[1]))
+        else:
+            skipped.append((seed, on, off))
+        seed += 1
+    return out, skipped
+
+
+def _anchor_form(obj, rows):
+    """An anchor of phase 4 as the web's ``/new`` form."""
+    form = {"problem_type": obj["type"],
+            "objective[]": [repr(v) for v in obj["coefficients"].values()],
+            "constraint_sign[]": [op for _, op, _ in rows],
+            "constraint_rhs[]": [repr(rhs) for _, _, rhs in rows]}
+    for j in range(len(obj["coefficients"])):
+        form[f"constraint_{j + 1}[]"] = [repr(a[j]) for a, _, _ in rows]
+    return form
+
+
+def _page(code1, page1, code2, page2, flash_page=""):
+    """What a web user got: the answer (the page's solution summary) or,
+    for a failure, why."""
+    answer = _SUMMARY.search(page2) if code2 == 200 else None
+    if code1 == 200 and "Vista previa" in page1 and answer is not None:
+        return {"answer": answer.group(0)}
+    flashes = [m.strip() for m in _FLASH.findall(flash_page or page2)]
+    return {"answer": None,
+            "error": f"{code1}/{code2}: {flashes or page2[-300:]!r}"}
+
+
+def _web_inproc(app, TestClient, kind):
+    """One web user in process, on a fresh client: ``/new`` with the
+    anchor's form or ``/load`` with the MPS file, then ``/solve``."""
+    client = TestClient(app)
+    if kind[0] == "anchor":
+        r1 = client.post("/new", data=kind[2])
+    else:
+        r1 = client.post("/load",
+                         files={"problem_file": ("netlib.mps", kind[2])})
+    r2 = client.post("/solve")
+    flash = client.get("/").text if r2.status_code in (301, 302) else ""
+    return _page(r1.status_code, r1.text, r2.status_code, r2.text, flash)
+
+
+def _web_http(base, kind):
+    """One web user over HTTP, with a client and a cookie jar of its own
+    (redirects followed, as a browser does)."""
+    import http.cookiejar
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    opener = urllib.request.build_opener(
+        urllib.request.HTTPCookieProcessor(http.cookiejar.CookieJar()))
+    if kind[0] == "anchor":
+        first = urllib.request.Request(base + "/new", data=urllib.parse.
+                                       urlencode(kind[2], doseq=True).encode())
+    else:
+        boundary = f"simplexload{os.urandom(8).hex()}"
+        first = urllib.request.Request(
+            base + "/load",
+            data=(f'--{boundary}\r\nContent-Disposition: form-data; '
+                  f'name="problem_file"; filename="netlib.mps"\r\n'
+                  f'Content-Type: application/octet-stream\r\n\r\n'
+                  f'{kind[2]}\r\n--{boundary}--\r\n').encode(),
+            headers={"Content-Type":
+                     f"multipart/form-data; boundary={boundary}"})
+    try:
+        with opener.open(first, timeout=600) as r1:
+            code1, page1 = r1.status, r1.read().decode("utf-8")
+        with opener.open(base + "/solve", data=b"", timeout=600) as r2:
+            code2, page2 = r2.status, r2.read().decode("utf-8")
+            moved = not r2.geturl().endswith("/solve")
+    except urllib.error.HTTPError as e:
+        return {"answer": None, "error": f"HTTP {e.code}: {e.read()[:300]!r}"}
+    if moved:                       # a flash and a redirect
+        return _page(code1, page1, 302, "", page2)
+    return _page(code1, page1, code2, page2)
+
+
+def _http_server(app):
+    """``app`` behind a threading WSGI server on a free local port (the
+    role of gunicorn's threaded workers): ``(server, thread, base URL)``."""
+    import socketserver
+    from wsgiref.simple_server import (WSGIRequestHandler, WSGIServer,
+                                       make_server)
+
+    class Server(socketserver.ThreadingMixIn, WSGIServer):
+        daemon_threads = True
+
+    class Handler(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = make_server("127.0.0.1", 0, app, server_class=Server,
+                         handler_class=Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _timed(request, kind):
+    """``(outcome, seconds)`` of one request; an exception is a failed
+    outcome."""
+    t0 = time.perf_counter()
+    try:
+        out = request(kind)
+    except Exception as exc:                    # logged by _hold
+        out = {"answer": None, "error": repr(exc)}
+    return out, time.perf_counter() - t0
+
+
+def _users(request, kinds, timeout=900):
+    """``request(kind)`` for every kind at once, one thread each, started
+    together; ``[(kind, (outcome, seconds))]``."""
+    out = [None] * len(kinds)
+    barrier = threading.Barrier(len(kinds))
+
+    def user(i):
+        barrier.wait(timeout=60)
+        out[i] = _timed(request, kinds[i])
+
+    threads = [threading.Thread(target=user, args=(i,))
+               for i in range(len(kinds))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    check(not any(t.is_alive() for t in threads), "a user thread hung")
+    return list(zip(kinds, out))
+
+
+def _sustained(request, kinds, seconds, rate, timeout=900):
+    """Arrivals at ``rate`` a second for ``seconds``, each a new thread
+    with the next kind in turn; ``([(kind, (outcome, seconds))], seconds
+    from the last arrival to the last answer)``."""
+    out, lock, threads = [], threading.Lock(), []
+
+    def user(kind):
+        res = _timed(request, kind)
+        with lock:
+            out.append((kind, res))
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        t = threading.Thread(target=user,
+                             args=(kinds[len(threads) % len(kinds)],))
+        t.start()
+        threads.append(t)
+        time.sleep(max(0.0, len(threads) / rate
+                       - (time.perf_counter() - t0)))
+    t1 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=timeout)
+    check(not any(t.is_alive() for t in threads), "a user thread hung")
+    return out, time.perf_counter() - t1
+
+
+def _latencies(results):
+    """p50, p95 and max seconds of each kind of request."""
+    out = {}
+    for name in ("anchor", "netlib"):
+        s = sorted(dt for kind, (_, dt) in results if kind[0] == name)
+        if s:
+            out[name] = {"p50": s[math.ceil(0.5 * len(s)) - 1],
+                         "p95": s[math.ceil(0.95 * len(s)) - 1],
+                         "max": s[-1]}
+    return out
+
+
+def _hold(label, results, solo):
+    """Fail on any request that got no answer or another answer than the
+    same request served alone; log each failure's message first."""
+    bad = [(kind[:2], out["error"] if out["answer"] is None
+            else "an answer other than the request's alone")
+           for kind, (out, _) in results if out["answer"] != solo[kind[:2]]]
+    for what, why in bad:
+        log(f"[load] {label}: {what} failed: {why}")
+    errors = sum(_SOLVE_ERROR in why for _, why in bad)
+    check(not bad, f"{label}: {len(bad)} of {len(results)} requests "
+          f"failed ({errors} with a flashed solve error)")
+
+
+def _rss():
+    with open("/proc/self/status", encoding="ascii") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS line in /proc/self/status")
+
+
+def _library_calls(pt, lps, batch):
+    """The calls of (c): ``solve_lp`` of LP ``i``, the batch through
+    ``solve_arrays``, and the sweep through ``solve_arrays_stream``; each
+    returns what is held bit-equal."""
+    cfg = pt.SolverConfig(device="cuda")
+    solver = pt.BatchedSimplexSolver(cfg)
+
+    def lp_call(i):
+        r = pt.solve_lp(lps[i], cfg)
+        return {"status": r.status, "basis": np.asarray(r.basis),
+                "nit": r.nit, "z": r.z}
+
+    def batch_call():
+        res = solver.solve_arrays(*batch, maximize=True)
+        return {"status": np.asarray(res.status), "z": np.asarray(res.z),
+                "nit": res.nit}
+
+    def sweep_call():
+        out = list(pt.solve_arrays_stream(
+            stream_chunks(SWEEP_CHUNKS, SWEEP_CHUNK, 30, 50, 300), cfg))
+        return {"status": np.concatenate([np.asarray(r.status) for r in out]),
+                "z": np.concatenate([np.asarray(r.z) for r in out]),
+                "nit": [r.nit for r in out]}
+
+    return lp_call, batch_call, sweep_call
+
+
+def _same_result(a, b):
+    return a.keys() == b.keys() and all(
+        _same_bits(a[k], b[k]) if isinstance(a[k], np.ndarray)
+        else a[k] == b[k] for k in a)
+
+
+# The anchors of .claude/skills/verify/SKILL.md: (objective, rows, Z).
+LOAD_ANCHORS = [
+    ({"type": "maximize", "coefficients": {"x1": 15.0, "x2": 18.0}},
+     [([4.0, 2.0], "<=", 2000.0), ([2.0, 6.0], "<=", 2400.0),
+      ([20.0, 28.0], "<=", 14000.0)], 9833.3333),
+    ({"type": "minimize", "coefficients": {"x1": 50.0, "x2": 80.0}},
+     [([4.0, 1.0], ">=", 4.0), ([1.0, 6.0], ">=", 6.0),
+      ([4.0, 6.0], ">=", 12.0)], 153.3333),
+    ({"type": "minimize", "coefficients": {"x1": 2.0, "x2": 3.0}},
+     [([1.0, 1.0], ">=", 5.0), ([2.0, 1.0], ">=", 8.0)], 10.0)]
+
+
+def load_mixes(problems):
+    """Phase 22's kinds of request, ``(kind, key, form or MPS text)``, its
+    known answers by ``(kind, key)`` and its mixes.  The waves: every
+    eighth user uploads (the first two LPs), the others fill in the
+    anchors' forms in turn.  Over HTTP: every fourth (the third and fourth
+    LPs).  The sustained stretch: every sixteenth arrival (the fifth LP
+    on, in turn)."""
+    kinds_a = [("anchor", k, _anchor_form(obj, rows))
+               for k, (obj, rows, _) in enumerate(LOAD_ANCHORS)]
+    kinds_n = [("netlib", seed, text) for seed, text, _, _ in problems]
+    z_ref = {("netlib", seed): z for seed, _, _, z in problems}
+    z_ref.update({("anchor", k): z
+                  for k, (_, _, z) in enumerate(LOAD_ANCHORS)})
+    return {
+        "anchors": kinds_a, "netlib": kinds_n, "z_ref": z_ref,
+        "waves": [kinds_n[i // 8 % LOAD_NETLIB] if i % 8 == 0
+                  else kinds_a[i % 3] for i in range(LOAD_USERS)],
+        "http": [kinds_n[(2 + i // 4) % LOAD_NETLIB] if i % 4 == 0
+                 else kinds_a[i % 3] for i in range(HTTP_USERS)],
+        "stretch": [kinds_n[(4 + j // 16) % LOAD_NETLIB] if j % 16 == 15
+                    else kinds_a[j % 3] for j in range(16 * LOAD_NETLIB)]}
+
+
+def phase_load(torch, pt, pivot_kernel, bk, gpu):
+    """Phase 22: many users on the card at once; returns the kernels'
+    launches over the phase."""
+    from simplex_tpu_torch.runtime import graphs
+    from simplex_tpu_torch.services.storage import StorageService
+    from simplex_tpu_torch.utils import mps
+    from simplex_tpu_torch.web.app import init_app
+    from simplex_tpu_torch.web.microweb import TestClient
+
+    t_phase = time.perf_counter()
+    pivot_kernel.LAUNCHES = bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    graphs.clear()
+    problems, skipped = load_problems(mps)
+    log(f"[load] netlib-scale LPs: seeds {[p[0] for p in problems]} of "
+        f"web_netlib_mps (shapes {[p[2].A.shape for p in problems]}); left "
+        f"out, HiGHS with and without presolve disagreeing: {skipped}")
+    mix = load_mixes(problems)
+    kinds_a, kinds_n, z_ref = mix["anchors"], mix["netlib"], mix["z_ref"]
+    waves, http_mix, stretch = mix["waves"], mix["http"], mix["stretch"]
+    # Both apps, in process and the WSGI module's, read the cap from the
+    # environment as a deployment sets it.
+    check("simplex_tpu_torch.web_app" not in sys.modules,
+          "the WSGI module was imported before its history cap was set")
+    os.environ["SIMPLEX_TPU_MAX_HISTORY"] = str(LOAD_HISTORY)
+    try:
+        app = init_app()
+        import simplex_tpu_torch.web_app as web_app
+    finally:
+        del os.environ["SIMPLEX_TPU_MAX_HISTORY"]
+
+    def inproc(kind):
+        return _web_inproc(app, TestClient, kind)
+
+    # Every request alone first: its answer, checked against the known Z
+    # (anchors) or HiGHS, from the report it saved.
+    store = StorageService()
+    solo, solo_s = {}, {}
+    for kind in kinds_a + kinds_n:
+        out, solo_s[kind[:2]] = _timed(inproc, kind)
+        check(out["answer"] is not None,
+              f"{kind[:2]} alone: no answer ({out.get('error')})")
+        ref = z_ref[kind[:2]]
+        sol = store.load_solution()["solucion_encontrada"]
+        z = sol["valor_optimo_z"]
+        ok = sol["status"] == "Solucion Factible" and (
+            round(z, 4) == ref if kind[0] == "anchor" else _gate(ref, z))
+        check(ok, f"{kind[:2]} alone: {sol['status']}, z={z!r}, expected "
+              f"{ref!r}")
+        solo[kind[:2]] = out["answer"]
+    log(f"[load] each request alone on {gpu}: seconds {solo_s}; anchors at "
+        f"their Z, the netlib-scale LPs optimal with z within 1e-6 (1+|z|) "
+        f"of HiGHS (history capped at {LOAD_HISTORY} pivots)")
+
+    # (c)'s calls alone: results, K1 and K2 launches and seconds.
+    lps = []
+    for seed in LIBRARY_SEEDS:
+        c, A, b = dense_lp(LIBRARY_SIZE, seed)
+        lps.append(pt.LinearProgram(c=c, A=A, b=b,
+                                    ops=np.full(LIBRARY_SIZE, -1),
+                                    maximize=True))
+    lp_call, batch_call, sweep_call = _library_calls(
+        pt, lps, bench_batch(LIBRARY_BATCH))
+    calls = {i: (lambda i=i: lp_call(i)) for i in range(len(lps))}
+    calls.update(batch=batch_call, sweep=sweep_call)
+    lib_solo, lib_solo_s, k_solo = {}, {}, {}
+    for name, fn in calls.items():
+        k1, k2 = pivot_kernel.LAUNCHES, bk.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lib_solo[name] = fn()
+        torch.cuda.synchronize()
+        lib_solo_s[name] = time.perf_counter() - t0
+        k_solo[name] = (pivot_kernel.LAUNCHES - k1, bk.LAUNCHES - k2)
+    k1_solo = sum(k[0] for k in k_solo.values())
+    k2_solo = sum(k[1] for k in k_solo.values())
+    check(k_solo["batch"][1] == lib_solo["batch"]["nit"],
+          f"the batch alone: K2 {k_solo['batch'][1]}, iterations "
+          f"{lib_solo['batch']['nit']}")
+    log(f"[load] (c) each call alone on {gpu}: seconds {lib_solo_s}; "
+        f"launches (K1, K2) {k_solo}, the batch's K2 = its iterations; "
+        f"statuses {[lib_solo[i]['status'] for i in range(len(lps))]}, "
+        f"pivots {[lib_solo[i]['nit'] for i in range(len(lps))]}")
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _rss()
+    walls = {}
+
+    def part(label, results, caps, reps, t0, note=""):
+        walls[label] = time.perf_counter() - t0
+        _hold(label, results, solo)
+        n = len(results)
+        log(f"[load] {label}{note} on {gpu}: {n} requests, every answer "
+            f"equal to its request alone; wall {walls[label]!r} s; latency "
+            f"{_latencies(results)}; captures {(graphs.CAPTURES - caps) / n!r}"
+            f" and replays {(graphs.REPLAYS - reps) / n!r} a request; cache "
+            f"{len(graphs.stats())} entries, {graphs.cache_bytes()} bytes")
+
+    # (a) every user at once, one request each, twice; then the sustained
+    # stretch.
+    for wave in (1, 2):
+        caps, reps, t0 = graphs.CAPTURES, graphs.REPLAYS, time.perf_counter()
+        part(f"(a) wave {wave}", _users(inproc, waves), caps, reps, t0)
+    caps, reps, t0 = graphs.CAPTURES, graphs.REPLAYS, time.perf_counter()
+    res, drain = _sustained(inproc, stretch, LOAD_SUSTAIN_S, LOAD_RATE)
+    part("(a) sustained", res, caps, reps, t0,
+         f", {LOAD_SUSTAIN_S} s at {LOAD_RATE} arrivals/s (the last answer "
+         f"{drain!r} s after the last arrival)")
+
+    # (b) the same kinds of request over HTTP, against the WSGI module's
+    # app.  An upload's answer sets a session cookie of about 1.3 MB (the
+    # app keeps the problem in its signed cookie, as the reference does:
+    # ROADMAP.md Queue 3 item 7), longer than the 64 KiB header line that
+    # the standard library's HTTP server and client read, so the limit is
+    # lifted for (b), as gunicorn takes such a cookie only under
+    # ``--limit-request-field_size 0``.
+    import http.client
+
+    server, thread, base = _http_server(web_app.app)
+    maxline, http.client._MAXLINE = http.client._MAXLINE, 1 << 24
+    try:
+        caps, reps, t0 = graphs.CAPTURES, graphs.REPLAYS, time.perf_counter()
+        res = _users(lambda kind: _web_http(base, kind), http_mix)
+    finally:
+        http.client._MAXLINE = maxline
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    part("(b) over HTTP", res, caps, reps, t0)
+
+    # (c) library callers at full width: each thread one solve_lp, the
+    # last one the batch first; one more thread the sweep.
+    n = len(LIBRARY_SEEDS)
+
+    def call(i):
+        if i == n:
+            return {"sweep": sweep_call()}
+        got = {"batch": batch_call()} if i == n - 1 else {}
+        got[i] = lp_call(i)
+        return got
+
+    k1, k2 = pivot_kernel.LAUNCHES, bk.LAUNCHES
+    caps, t0 = graphs.CAPTURES, time.perf_counter()
+    res = _users(call, list(range(n + 1)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = pivot_kernel.LAUNCHES - k1, bk.LAUNCHES - k2
+    for i, (got, _) in res:
+        check("error" not in got, f"(c): call {i} raised: {got.get('error')}")
+        for name, r in got.items():
+            check(_same_result(r, lib_solo[name]),
+                  f"(c): {name} under load differs from alone")
+    check(k1 == k1_solo, f"(c): K1 {k1} under load, {k1_solo} alone")
+    check(k2 == k2_solo, f"(c): K2 {k2} under load, {k2_solo} alone")
+    log(f"[load] (c) on {gpu}: {n} solve_lp calls ({LIBRARY_SIZE}^2), the "
+        f"{LIBRARY_BATCH} x (30x50) batch and a sweep of {SWEEP_CHUNKS} x "
+        f"{SWEEP_CHUNK} at once: each bit-equal to its call alone; K1 {k1} "
+        f"and K2 {k2} = alone; wall {wall!r} s, each thread "
+        f"{[dt for _, (_, dt) in res]!r} s; captures "
+        f"{graphs.CAPTURES - caps}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = (pivot_kernel.LAUNCHES, bk.LAUNCHES, bk.LAUNCHES_K3)
+    log(f"[load] phase 22 on {gpu}: {time.perf_counter() - t_phase!r} s "
+        f"(parts {walls}); peak device memory {peak / 2**30!r} GiB, host "
+        f"RSS growth {(_rss() - rss0) / 2**20!r} MiB, cache "
+        f"{len(graphs.stats())} entries, {graphs.cache_bytes()} bytes; "
+        f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+    return launches
 
 
 def main():
@@ -3343,15 +3882,25 @@ def main():
     # 21. the measurement runner, every mode
     t_bench = time.perf_counter()
     walls = phase_bench_runner(torch, gpu)
+
+    # 22. many users at once: the web app in process and over HTTP, and
+    # library callers at full width
+    t_load = time.perf_counter()
+    load_launches = phase_load(torch, pt, pivot_kernel, bk, gpu)
+    _graph_stats("phase 22")
     tmp.cleanup()
     t_end = time.perf_counter()
-    log(f"[done] phases 1-21 in {t_end - t_start!r} s, of which phases "
-        f"9-11 {t_k4 - t_k3!r} s, 12-13 {t_mps - t_k4!r} s, 14 "
-        f"{t_web - t_mps!r} s, 15 {t_new - t_web!r} s, 16 "
-        f"{t_pdhg - t_new!r} s, 17 {t_pstream - t_pdhg!r} s, 18 "
-        f"{t_bstream - t_pstream!r} s, 19 {t_sharded - t_bstream!r} s, "
-        f"20 {t_bench - t_sharded!r} s and 21 {t_end - t_bench!r} s "
-        f"({', '.join(f'{k.split()[0]} {v:.1f}' for k, v in walls.items())})")
+    log(f"[done] phases 1-22 in {t_end - t_start!r} s, of which phases "
+        f"1-8 {t_k3 - t_start!r} s, 9-11 {t_k4 - t_k3!r} s, 12-13 "
+        f"{t_mps - t_k4!r} s, 14 {t_web - t_mps!r} s, 15 "
+        f"{t_new - t_web!r} s, 16 {t_pdhg - t_new!r} s, 17 "
+        f"{t_pstream - t_pdhg!r} s, 18 {t_bstream - t_pstream!r} s, 19 "
+        f"{t_sharded - t_bstream!r} s, 20 {t_bench - t_sharded!r} s, 21 "
+        f"{t_load - t_bench!r} s "
+        f"({', '.join(f'{k.split()[0]} {v:.1f}' for k, v in walls.items())})"
+        f" and 22 {t_end - t_load!r} s")
+    log(f"[path] launches on phase 22's paths: K1 {load_launches[0]}, K2 "
+        f"{load_launches[1]}, K3 {load_launches[2]}")
 
     log(json.dumps({"kernels": [{
         "name": "K1 pivot_update",

@@ -19,6 +19,10 @@
 // may destroy them; the memory they address (torch's graph pool) must
 // outlive the chain.  Every entry point returns a cudaError_t.
 //
+// graph_stream_create makes the streams runtime/graphs.py warms up and
+// captures on: its own, outside torch's pool of streams, which hands every
+// caller the same 32 a device in turn.
+//
 // graph_node_counts lists what a captured part holds, by node type: a
 // conditional node's body takes only some types (kernels, memsets,
 // memcopies, empty, child graph and conditional nodes), so a part with,
@@ -150,6 +154,17 @@ extern "C" int graph_chain_destroy(void* exec, void* stream) {
   cudaError_t err = cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
   cudaError_t err2 = cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
   return err != cudaSuccess ? err : err2;
+}
+
+// Makes a stream on the current device that does not wait for the legacy
+// default stream (work that other threads enqueue there must not join a
+// capture on it), and writes it to *stream_out.  The caller keeps it for
+// the process's life.
+extern "C" int graph_stream_create(void** stream_out) {
+  cudaStream_t stream = nullptr;
+  cudaError_t err = cudaStreamCreateWithFlags(&stream, cudaStreamNonBlocking);
+  *stream_out = stream;
+  return err;
 }
 
 // Counts the nodes of the cudaGraph_t `graph` by cudaGraphNodeType into

@@ -40,7 +40,7 @@ import torch
 
 from ..config import resolve_dtype, torch_device
 from ..core.problem import OP_EQ, OP_GE
-from ..runtime import graphs, staging
+from ..runtime import counters, graphs, staging
 
 # Host reads of the loop state since the counter was last reset to 0.
 STATE_READS = 0
@@ -215,7 +215,6 @@ def _pdhg_solve(A, b, c, is_eq, ub=None, max_iters: int = 10000,
     one CUDA graph on the card.  Returns ``(x, y, primal, dual, gap, done,
     iters)`` as tensors, ``iters`` a host int.
     """
-    global STATE_READS
     B, m, n = A.shape
     dt, dev = A.dtype, A.device
     if dev.type == "cuda":
@@ -268,7 +267,7 @@ def _pdhg_solve(A, b, c, is_eq, ub=None, max_iters: int = 10000,
             lp.run(_pdhg_chunk, k_end - k, k_end - 1 == k_check)
             k = k_end
             if k > k_check:
-                STATE_READS += 1
+                counters.add(globals(), "STATE_READS")
                 if bool(lp.state["done"].all()):
                     break
     x, y = state["x"], state["y"]

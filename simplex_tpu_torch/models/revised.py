@@ -65,7 +65,7 @@ from ..core.problem import (
     normalize_bounds,
     split_free_variables,
 )
-from ..runtime import graphs
+from ..runtime import counters, graphs
 from .dense import (
     SimplexResult,
     _finalize_on_host,
@@ -280,7 +280,6 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
     static = (float(tol), int(max_iters), int(bland_after), stall_limit,
               bool(devex), bool(in_phase2))
 
-    global STATE_READS
     n_steps = refactor_every - 1        # since starts at 1
     with graphs.Loop("revised.phase", state, consts, static) as lp:
         st = lp.state
@@ -290,7 +289,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
                 st["status"], st["iters"], st["no_imp"],
                 _objective(lp.consts, st["basis"], st["x_B"],
                            st["at_upper"]), dtype=torch.float64)
-            STATE_READS += 1
+            counters.add(globals(), "STATE_READS")
             st_, it, ni = int(st_), int(it), int(ni)
             if not (st_ == RUNNING and it < max_iters and ni < stall_limit):
                 break

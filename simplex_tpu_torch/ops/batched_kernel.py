@@ -41,6 +41,8 @@ import math
 
 import torch
 
+from ..runtime import counters
+
 RUNNING = -1
 _INT_MAX = 2**31 - 1
 
@@ -243,7 +245,6 @@ def fused_pivot_step_(T, basis, cm1, cm2, phase, status, use_bland,
     A CUDA tensor goes to the kernel (built on first use), a CPU tensor to
     the twin; any other device raises.  Returns what the twin returns.
     """
-    global LAUNCHES
     cm1_, cm2_, phase_, status_, bland, w, padded = _prepare(
         T, basis, cm1, cm2, phase, status, use_bland, weights)
     if T.device.type == "cpu":
@@ -272,7 +273,7 @@ def fused_pivot_step_(T, basis, cm1, cm2, phase, status, use_bland,
     if err != 0:
         raise RuntimeError(
             f"K2 fused_pivot_step launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    counters.add(globals(), "LAUNCHES")
     if padded:
         weights.copy_(w[:, :-1])
         w = weights
@@ -517,7 +518,6 @@ def fused_pivot_step_bounded_(T, basis, at_upper, cm1, cm2, phase, status,
     A CUDA tensor goes to the kernel (built on first use), a CPU tensor to
     the twin; any other device raises.  Returns what the twin returns.
     """
-    global LAUNCHES_K3
     if isinstance(T, torch.Tensor) and T.device.type == "cpu":
         return fused_pivot_step_bounded_ref(
             T, basis, at_upper, cm1, cm2, phase, status, use_bland, weights,
@@ -550,7 +550,7 @@ def fused_pivot_step_bounded_(T, basis, at_upper, cm1, cm2, phase, status,
     if err != 0:
         raise RuntimeError(
             f"K3 fused_pivot_step_bounded launch failed: CUDA error {err}")
-    LAUNCHES_K3 += 1
+    counters.add(globals(), "LAUNCHES_K3")
     if padded:
         weights.copy_(w[:, :-1])
         w = weights

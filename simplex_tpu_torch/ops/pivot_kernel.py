@@ -23,6 +23,8 @@ from typing import Tuple
 
 import torch
 
+from ..runtime import counters
+
 # Kernel launches since the counter was last reset to 0.  Incremented only
 # where the CUDA kernel is launched, so a run can prove that its pivots went
 # through the kernel.
@@ -114,7 +116,6 @@ def pivot_update_(T: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
     A CUDA tensor goes to the kernel (built on first use), a CPU tensor to
     :func:`pivot_update_ref`; any other device raises.
     """
-    global LAUNCHES
     _check(T, r, s, do_pivot)
     if T.device.type == "cpu":
         return pivot_update_ref(T, r, s, do_pivot, clamp_rhs)
@@ -139,5 +140,5 @@ def pivot_update_(T: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
                  col, prow, stream)
     if err != 0:
         raise RuntimeError(f"K1 pivot_update launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    counters.add(globals(), "LAUNCHES")
     return T

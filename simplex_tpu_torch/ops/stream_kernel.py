@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from ..runtime import counters
+
 EPS_ADD = 1e-7
 
 # Kernel launches since the counter was last reset to 0.  Incremented only
@@ -80,7 +82,6 @@ def stream_copy_(x: torch.Tensor,
     A CUDA tensor goes to the kernel (built on first use), a CPU tensor to
     :func:`stream_copy_ref`; any other device raises.
     """
-    global LAUNCHES
     out = _check(x, out)
     if x.device.type == "cpu":
         return stream_copy_ref(x, out)
@@ -96,5 +97,5 @@ def stream_copy_(x: torch.Tensor,
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream)
     if err != 0:
         raise RuntimeError(f"K4 stream_copy launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    counters.add(globals(), "LAUNCHES")
     return out

@@ -50,7 +50,7 @@ from ..core.problem import (
     STATUS_UNBOUNDED,
     StandardForm,
 )
-from ..runtime import graphs
+from ..runtime import counters, graphs
 from .pivot_kernel import pivot_update_
 
 RUNNING = -1  # internal sentinel while the pivot loop is active
@@ -65,8 +65,7 @@ STATE_READS = 0
 def _read(lp, *vals):
     """The host's one read of the loop state a chunk: 0-d tensors as ints
     (``graphs.Loop.read``)."""
-    global STATE_READS
-    STATE_READS += 1
+    counters.add(globals(), "STATE_READS")
     return lp.read(*vals)
 
 

@@ -38,15 +38,20 @@ entry, each chunk variant (its length, and what else the loop passes to
 (they never run at the same time, and every value they leave behind is in
 the static buffers).  The cache holds at most :data:`MAX_ENTRIES` entries
 and :data:`MAX_BYTES` bytes of buffers and pools on the card; the least
-recently used entries go first.  A solve whose buffers alone exceed the
-budget, or whose entry another solve is using, runs on a private entry
-whose buffers are its own tensors (nothing is copied) and which is dropped
-when the solve ends.  Where a new entry's buffers do not fit on the card,
-the idle entries are dropped and the allocation is tried once more.  An
-idle entry whose ``static`` holds a process group that
-``torch.distributed`` no longer knows (destroyed) is dropped when the
-cache is next used, so no graph outlives the group whose collectives it
-captured.
+recently used idle entries go first.  Several entries may stand under one
+key, as a compiled executable serves several threads at once: a solve
+takes an idle entry of its key, and where every one is in use (other
+threads are solving the same shapes) it adds one more while the entries
+in use leave room within both limits.  An entry is never in use by two
+solves.  A solve for which there is no room, or whose buffers alone
+exceed the budget, runs on a private entry whose buffers are its own
+tensors (nothing is copied) and which is dropped when the solve ends.
+Where a new entry's buffers do not fit on the card, the idle entries are
+dropped and the allocation is tried once more.  An idle entry whose
+``static`` holds a process group that ``torch.distributed`` no longer knows
+(destroyed) is dropped when the cache is next used, so no graph outlives
+the group whose collectives it captured.  One capture runs at a time in
+the process; replays and eager chunks of other solves run beside it.
 
 Loop exit (the reference's ``lax.while_loop`` condition): a chunk body
 runs its steps through :func:`steps`.  Every step writes its new state
@@ -67,8 +72,10 @@ after a chunk's first runs the same code, as a ``while_loop``'s body does.
 
 Launch counts: a capture enqueues kernels without running them, so the
 wrappers' counters (``LAUNCHES`` of K1, K2, K3 and K4) are set back after
-it.  A replay adds the launches its capture enqueued outside any step at
-once, and those of the steps that ran when the loop reads the state
+it, by the launches its own thread enqueued during it (``counters.mine``:
+another thread's launches meanwhile are real and stay counted).  A replay
+adds the launches its capture enqueued outside any step at once, and
+those of the steps that ran when the loop reads the state
 (:meth:`Loop.read`, which reads ``state["steps"]`` with the loop's own
 values, in the same transfer): the first step's, then the second's for
 every later one.
@@ -77,12 +84,15 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import itertools
 import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from . import counters
 
 # The most entries, and the most bytes of static buffers and graph pools on
 # the card, that the cache keeps between solves.
@@ -103,8 +113,15 @@ EAGER_CHUNKS = 0
 # Steps of bodies with steps that ran (counted at each Loop.read).
 STEPS = 0
 
+# Each entry under its slot (its key and a serial number), least recently
+# used first.
 _CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
 _LOCK = threading.Lock()
+_SERIAL = itertools.count()
+# One capture at a time in the process (replays and eager chunks run on):
+# after a torch.profiler session, captures on several threads at once hang
+# in CUDA on the card (ROADMAP.md, Queue 3).
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _counters():
@@ -119,9 +136,14 @@ def _read_counters():
     return [getattr(mod, name) for mod, name in _counters()]
 
 
+def _own_counters():
+    """The launches this thread has counted, counter by counter."""
+    return [counters.mine(vars(mod), name) for mod, name in _counters()]
+
+
 def _add_counters(counts):
     for (mod, name), n in zip(_counters(), counts):
-        setattr(mod, name, getattr(mod, name) + n)
+        counters.add(vars(mod), name, n)
 
 
 def _store(state: Dict[str, torch.Tensor],
@@ -183,13 +205,13 @@ def steps(state: Dict[str, torch.Tensor], n_steps: int):
             yield k
             continue
         rec.graph.begin_step((go, count, n_steps) if k else None)
-        before = _read_counters()
+        before = _own_counters()
         try:
             count.add_(1)
             yield k
         finally:
             rec.steps.append([b - a for a, b in
-                              zip(before, _read_counters())])
+                              zip(before, _own_counters())])
             rec.graph.end_step()
 
 
@@ -213,37 +235,48 @@ class _CudaGraph:
         self._exec = None
         self._lib = None
         self._stream = None
+        self._side = None
 
     def warm_up(self, fn: Callable[[], None]):
-        """Run ``fn`` eagerly on the side stream that captures, ordered
-        after the current stream's work and before its next (so cuBLAS's
-        workspace for that stream exists before the capture)."""
+        """Run ``fn`` eagerly on the side stream that will capture it,
+        ordered after the current stream's work and before its next (so
+        cuBLAS's workspace for that stream exists before the capture).  The
+        stream is this graph's until :meth:`capture` ends."""
         current = torch.cuda.current_stream(self.device)
-        side = _side_stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            fn()
-        current.wait_stream(side)
+        side = self._side = _take_side(self.device)
+        try:
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                fn()
+            current.wait_stream(side)
+        except BaseException:
+            self._side = None
+            _give_side(self.device, side)
+            raise
 
     def capture(self, fn: Callable[[], None]) -> int:
-        """Capture ``fn`` (it does not run).  Returns the bytes the capture
-        added to the allocator's reserve (the pool's growth)."""
+        """Capture ``fn`` (it does not run) on the warm-up's side stream.
+        Returns the bytes the capture added to the allocator's reserve (the
+        pool's growth)."""
         current = torch.cuda.current_stream(self.device)
         before = torch.cuda.memory_reserved(self.device)
-        side = _side_stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._begin(None)
-            try:
-                fn()
-            finally:
-                self._end()
-            if len(self._parts) == 1:
-                self.graph = self._parts.pop()[0]
-                self.graph.instantiate()
-            else:
-                self._chain(side)
-        current.wait_stream(side)
+        side, self._side = self._side, None
+        try:
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._begin(None)
+                try:
+                    fn()
+                finally:
+                    self._end()
+                if len(self._parts) == 1:
+                    self.graph = self._parts.pop()[0]
+                    self.graph.instantiate()
+                else:
+                    self._chain(side)
+            current.wait_stream(side)
+        finally:
+            _give_side(self.device, side)
         return torch.cuda.memory_reserved(self.device) - before
 
     def begin_step(self, loop):
@@ -314,18 +347,45 @@ class _CudaGraph:
             self._lib.graph_chain_destroy(self._exec, self._stream)
 
 
-_SIDE = threading.local()
+# The idle side streams of each device, made for warm-ups and captures.
+_SIDE_IDLE: Dict[str, list] = collections.defaultdict(list)
+_SIDE_LOCK = threading.Lock()
 
 
-def _side_stream(device) -> "torch.cuda.Stream":
-    """One side stream a device and thread for every warm-up and capture,
-    as ``torch.cuda.graph`` keeps one capture stream (a thread's capture
-    never shares its stream with another thread's work)."""
-    streams = _SIDE.__dict__.setdefault("streams", {})
-    key = str(device)
-    if key not in streams:
-        streams[key] = torch.cuda.Stream(device)
-    return streams[key]
+def _take_side(device) -> "torch.cuda.Stream":
+    """A side stream for one chunk's warm-up and capture, as
+    ``torch.cuda.graph`` keeps one capture stream, that nothing else holds:
+    work that another thread enqueued on a capturing stream would join the
+    capture.  torch hands out its own streams round-robin from a pool of
+    32 a device, to any caller (``solve_arrays_stream``'s uploads, a
+    library user), so these streams are made outside it
+    (:func:`_new_side`); an idle one is taken again, else one more is
+    made."""
+    with _SIDE_LOCK:
+        idle = _SIDE_IDLE[str(device)]
+        if idle:
+            return idle.pop()
+    return _new_side(device)
+
+
+def _new_side(device) -> "torch.cuda.Stream":
+    """A new stream of the device's own (``graph_stream_create``: it does
+    not wait for the legacy default stream), kept for the process's
+    life."""
+    from . import kernels
+
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        err = kernels.library().graph_stream_create(ctypes.byref(handle))
+    if err != 0:
+        raise RuntimeError(f"making a capture stream failed: CUDA error "
+                           f"{err}")
+    return torch.cuda.ExternalStream(handle.value, device=device)
+
+
+def _give_side(device, stream):
+    with _SIDE_LOCK:
+        _SIDE_IDLE[str(device)].append(stream)
 
 
 def _new_graph(device, pool):
@@ -354,6 +414,7 @@ class _Entry:
 
     def __init__(self, key, state, consts, device, private=False):
         self.key = key
+        self.slot = key + (next(_SERIAL),)
         self.device = device
         self.private = private
         if private:
@@ -385,13 +446,12 @@ class _Entry:
         """One chunk: a replay, or the warm-up and capture of a new
         variant.  Returns the launches of each step of a replay, which the
         loop adds once it knows how many ran (:meth:`Loop.read`)."""
-        global REPLAYS, CAPTURES, EAGER_CHUNKS
         hit = self.graphs.get(args)
         if hit is not None:
             graph, launches, step_launches = hit
             graph.replay()
             _add_counters(launches)
-            REPLAYS += 1
+            counters.add(globals(), "REPLAYS")
             return step_launches
 
         def chunk():
@@ -402,23 +462,25 @@ class _Entry:
         graph = _new_graph(self.device, self.pool)
         # The warm-up is this chunk's real work, eager and counted.
         graph.warm_up(chunk)
-        EAGER_CHUNKS += 1
-        before = _read_counters()
+        counters.add(globals(), "EAGER_CHUNKS")
+        before = _own_counters()
         rec = _CAPTURING.rec = _Record(graph)
         t0 = time.perf_counter()
         try:
-            self.pool_bytes += max(graph.capture(chunk), 0)
+            with _CAPTURE_LOCK:
+                self.pool_bytes += max(graph.capture(chunk), 0)
         finally:
             _CAPTURING.rec = None
-            after = _read_counters()
-            # The capture ran nothing: set the counters back.
-            _add_counters([b - a for a, b in zip(after, before)])
+            # What this thread enqueued: the capture ran none of it, so it
+            # is set back.
+            enqueued = [b - a for a, b in zip(before, _own_counters())]
+            _add_counters([-n for n in enqueued])
         self.capture_s += time.perf_counter() - t0
         # The launches outside any step, and those of each step.
-        outside = [a - b - sum(s[i] for s in rec.steps)
-                   for i, (a, b) in enumerate(zip(after, before))]
+        outside = [n - sum(s[i] for s in rec.steps)
+                   for i, n in enumerate(enqueued)]
         self.graphs[args] = (graph, outside, rec.steps)
-        CAPTURES += 1
+        counters.add(globals(), "CAPTURES")
         return None
 
 
@@ -436,17 +498,20 @@ def _group_gone(value) -> bool:
     return False
 
 
-def _drop(keep: Callable[[tuple, _Entry], bool]):
-    """Drop every idle entry that ``keep`` refuses."""
-    for key in [k for k, e in _CACHE.items()
-                if not e.busy and not keep(k, e)]:
-        del _CACHE[key]
+def _drop(keep: Callable[[_Entry], bool]) -> List[_Entry]:
+    """Take every idle entry that ``keep`` refuses out of the cache, and
+    return them: the caller lets them go after it has left the lock (a
+    chained graph's destruction waits for its last launch)."""
+    gone = [e for e in _CACHE.values() if not e.busy and not keep(e)]
+    for e in gone:
+        del _CACHE[e.slot]
+    return gone
 
 
-def _drop_stale():
+def _drop_stale() -> List[_Entry]:
     """Drop the idle entries whose static values hold a destroyed process
     group (the key's second item is the loop's ``static``)."""
-    _drop(lambda key, e: not any(_group_gone(v) for v in key[1]))
+    return _drop(lambda e: not any(_group_gone(v) for v in e.key[1]))
 
 
 def _new_entry(key, state, consts, device) -> _Entry:
@@ -456,23 +521,36 @@ def _new_entry(key, state, consts, device) -> _Entry:
     try:
         return _Entry(key, state, consts, device)
     except torch.cuda.OutOfMemoryError:
-        _drop(lambda key, e: False)
+        _drop(lambda e: False)
         return _Entry(key, state, consts, device)
 
 
+def _room(nbytes: int) -> bool:
+    """Whether a new entry with ``nbytes`` of buffers may join the cache:
+    with the entries in use it stays within both limits (the idle ones go
+    at the next release)."""
+    busy = [e for e in _CACHE.values() if e.busy]
+    return (len(busy) < MAX_ENTRIES
+            and sum(e.nbytes for e in busy) + nbytes <= MAX_BYTES)
+
+
 def _acquire(key, state, consts, device) -> _Entry:
-    """The cache's entry for ``key``, marked busy and filled with the
-    solve's tensors; a private entry where the cached one is in use."""
+    """An idle cache entry of ``key``, or a new one where every entry of
+    the key is in use and there is room, else a private entry; marked
+    busy and filled with the solve's tensors."""
     with _LOCK:
-        _drop_stale()
-        entry = _CACHE.get(key)
-        if entry is not None and not entry.busy:
-            _CACHE.move_to_end(key)
-        elif entry is None and _nbytes(state) + _nbytes(consts) <= MAX_BYTES:
-            entry = _CACHE[key] = _new_entry(key, state, consts, device)
+        gone = _drop_stale()
+        entry = next((e for e in _CACHE.values()
+                      if e.key == key and not e.busy), None)
+        if entry is not None:
+            _CACHE.move_to_end(entry.slot)
+        elif _room(_nbytes(state) + _nbytes(consts)):
+            entry = _new_entry(key, state, consts, device)
+            _CACHE[entry.slot] = entry
         else:
             entry = _Entry(key, state, consts, device, private=True)
         entry.busy = True
+    del gone
     if not entry.private:
         entry.load(state, consts)
     return entry
@@ -481,39 +559,44 @@ def _acquire(key, state, consts, device) -> _Entry:
 def _release(entry: _Entry):
     with _LOCK:
         entry.busy = False
-        _drop_stale()
-        _evict()
+        gone = _drop_stale() + _evict()
+    del gone
 
 
-def _evict():
+def _evict() -> List[_Entry]:
     """Drop the least recently used idle entries until the cache holds at
-    most MAX_ENTRIES entries and MAX_BYTES bytes."""
-    _drop(lambda key, e: e.nbytes <= MAX_BYTES)
+    most MAX_ENTRIES entries and MAX_BYTES bytes; returns them."""
+    gone = _drop(lambda e: e.nbytes <= MAX_BYTES)
 
     def over():
         return (len(_CACHE) > MAX_ENTRIES
                 or sum(e.nbytes for e in _CACHE.values()) > MAX_BYTES)
 
-    for key in list(_CACHE):
+    for e in list(_CACHE.values()):
         if not over():
             break
-        if not _CACHE[key].busy:
-            del _CACHE[key]
+        if not e.busy:
+            del _CACHE[e.slot]
+            gone.append(e)
+    return gone
 
 
 def clear():
     """Drop every idle cache entry."""
     with _LOCK:
-        _drop(lambda key, e: False)
+        gone = _drop(lambda e: False)
+    del gone
 
 
 def stats():
     """One record a cache entry: its loop, its graphs, their capture
-    seconds and the bytes it holds on the card (buffers and pool)."""
+    seconds, the bytes it holds on the card (buffers and pool) and whether
+    a solve is using it."""
     with _LOCK:
-        return [{"loop": key[0], "graphs": len(e.graphs),
+        return [{"loop": e.key[0], "graphs": len(e.graphs),
                  "capture_s": e.capture_s, "buffer_bytes": e.buffer_bytes,
-                 "pool_bytes": e.pool_bytes} for key, e in _CACHE.items()]
+                 "pool_bytes": e.pool_bytes, "busy": e.busy}
+                for e in _CACHE.values()]
 
 
 # cudaGraphNodeType's names, in its order.
@@ -544,7 +627,7 @@ def captured_parts(name: str) -> list:
     ``(kind, node_types)`` in capture order, ``kind`` ``"once"`` or
     ``"while"`` (the body of the WHILE node).  Empty on the CPU."""
     with _LOCK:
-        entries = [e for key, e in _CACHE.items() if key[0] == name]
+        entries = [e for e in _CACHE.values() if e.key[0] == name]
     out = []
     for entry in entries:
         for variant, (graph, _, _) in entry.graphs.items():
@@ -614,7 +697,6 @@ class Loop:
 
     def run(self, body, *args):
         """One chunk of the loop."""
-        global EAGER_CHUNKS
         if self._pending:
             raise RuntimeError(f"{self.name}: read the last chunk's state "
                                "(Loop.read) before the next chunk")
@@ -622,19 +704,18 @@ class Loop:
             self._pending = self._entry.run(body, self.static, args)
             return
         _store(self.state, body(self.state, self.consts, self.static, *args))
-        EAGER_CHUNKS += 1
+        counters.add(globals(), "EAGER_CHUNKS")
 
     def read(self, *vals: torch.Tensor, dtype=torch.int64) -> list:
         """The host's one read after a chunk: ``vals`` (0-d tensors) as
         Python numbers through ``dtype``, read in one transfer with the
         chunk's step count, which adds the launches of the steps that a
         replay ran to the kernels' counters."""
-        global STEPS
         out = torch.stack([v.to(dtype) for v in
                            (*vals, self.state["steps"])]).tolist()
         pending, self._pending = self._pending, None
         ran = int(out.pop())
-        STEPS += ran
+        counters.add(globals(), "STEPS", ran)
         if pending:
             # The first step's launches, then the loop body's for each
             # later step.

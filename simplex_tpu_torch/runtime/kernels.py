@@ -130,11 +130,12 @@ ARGTYPES = {
     "k4_stream_copy_f32": [_P, _P, _I64, _P],
     "k4_stream_copy_f64": [_P, _P, _I64, _P],
     # csrc/graph_steps.cu: n, parts, flags, counts, limits, exec_out,
-    # stream; exec, stream; graph, n_types, counts
+    # stream; exec, stream; graph, n_types, counts; stream_out
     "graph_chain_build": [_I64, _P, _P, _P, _P, _P, _P],
     "graph_chain_launch": [_P, _P],
     "graph_chain_destroy": [_P, _P],
     "graph_node_counts": [_U64, _I64, _P],
+    "graph_stream_create": [_P],
 }
 
 

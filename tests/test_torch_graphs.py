@@ -29,7 +29,7 @@ from simplex_tpu_torch.models import revised as t_rev
 from simplex_tpu_torch.ops import batched as tb
 from simplex_tpu_torch.ops import batched_kernel, pivot_kernel
 from simplex_tpu_torch.ops import tableau as tt
-from simplex_tpu_torch.runtime import graphs, staging
+from simplex_tpu_torch.runtime import counters, graphs, staging
 
 # Each case of _torch_loop_cases.py in float64 on the CPU, as the loops
 # computed it before their chunks were factored into bodies.
@@ -190,10 +190,10 @@ class _StubGraph:
         return 0
 
     def replay(self):
-        counts = graphs._read_counters()
+        counts = graphs._own_counters()
         self.fn()
         graphs._add_counters([a - b for a, b in
-                              zip(counts, graphs._read_counters())])
+                              zip(counts, graphs._own_counters())])
 
 
 @pytest.fixture
@@ -217,8 +217,8 @@ def _toy(st, cs, static, n):
     add ``inc * scale`` to ``k``."""
     k = st["k"]
     for _ in range(n):
-        pivot_kernel.LAUNCHES += 2
-        batched_kernel.LAUNCHES_K3 += 1
+        counters.add(vars(pivot_kernel), "LAUNCHES", 2)
+        counters.add(vars(batched_kernel), "LAUNCHES_K3")
         k = k + cs["inc"] * static[0]
     return {"k": k}
 
@@ -280,6 +280,9 @@ def test_over_budget_and_busy_solves_get_private_entries(stub, monkeypatch):
     assert torch.equal(k, torch.full((64,), 4.0, dtype=torch.float64))
     assert not stub._CACHE and stub.REPLAYS == 1
     monkeypatch.setattr(graphs, "MAX_BYTES", 1 << 20)
+    # A busy key's solve adds an entry only while there is room
+    # (test_concurrent_waves_reuse_the_entries_of_their_key): here none.
+    monkeypatch.setattr(graphs, "MAX_ENTRIES", 1)
     outer = torch.zeros(4, dtype=torch.float64)
     with graphs.Loop("toy", {"k": outer}, {"inc": torch.ones(4)},
                      (1.0,)) as lp:
@@ -399,43 +402,225 @@ class _ReplayStub(_StubGraph):
         return 0
 
 
-def test_concurrent_solves_keep_every_result_and_the_cache(stub,
-                                                           monkeypatch):
-    """Eight threads solving with two keys at once, with a short switch
-    interval: a solve that finds its entry in use runs on a private one,
-    and every result is right."""
+def _threads(target, n, timeout=60):
+    """Run ``target(i)`` on ``n`` threads with a short switch interval;
+    returns the errors they raised."""
     import sys
     import threading
 
-    monkeypatch.setattr(graphs, "_new_graph", _ReplayStub)
     errors = []
 
-    def worker(i):
+    def run(i):
         try:
-            for chunks in range(1, 13):
-                size = 2 + i % 2
-                k = _solve(chunks, n=1, size=size)
-                if not torch.equal(k, torch.full((size,), float(chunks),
-                                                 dtype=torch.float64)):
-                    errors.append((i, chunks, k))
-        except Exception as exc:               # reported below
+            target(i)
+        except Exception as exc:               # reported by the caller
             errors.append((i, exc))
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=worker, args=(i,))
-                   for i in range(8)]
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=60)
+            t.join(timeout=timeout)
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
+    return errors
+
+
+def _within_limits(stub, keys=2):
+    """The cache holds entries of ``keys`` keys, within both limits, and
+    none is in use."""
+    entries = list(stub._CACHE.values())
+    assert len({e.key for e in entries}) == keys
+    assert len(entries) <= stub.MAX_ENTRIES
+    assert stub.cache_bytes() <= stub.MAX_BYTES
+    assert not any(e.busy for e in entries)
+
+
+def test_concurrent_solves_keep_every_result_and_the_cache(stub,
+                                                           monkeypatch):
+    """Eight threads solving with two keys at once, with a short switch
+    interval: a solve that finds every entry of its key in use adds one,
+    every result is right, and the cache ends within its limits."""
+    monkeypatch.setattr(graphs, "_new_graph", _ReplayStub)
+
+    def worker(i):
+        for chunks in range(1, 13):
+            size = 2 + i % 2
+            k = _solve(chunks, n=1, size=size)
+            assert torch.equal(k, torch.full((size,), float(chunks),
+                                             dtype=torch.float64)), (i, k)
+
+    errors = _threads(worker, 8)
     assert not errors, errors[:3]
-    assert len(stub._CACHE) == 2
-    assert not any(e.busy for e in stub._CACHE.values())
+    _within_limits(stub)
+    # At most one entry for each of a key's four threads.
+    keys = [e.key for e in stub._CACHE.values()]
+    assert max(keys.count(k) for k in keys) <= 4
+
+
+class _ThreadStub(_StubGraph):
+    """A stub that threads may use at once: its capture runs the chunk (to
+    count what it enqueues) and puts the entry's state back."""
+
+    def capture(self, fn):
+        entry = next(cell.cell_contents for cell in fn.__closure__
+                     if isinstance(cell.cell_contents, graphs._Entry))
+        saved = {k: v.clone() for k, v in entry.state.items()}
+        fn()
+        for k, v in saved.items():
+            entry.state[k].copy_(v)
+        self.fn = fn
+        return 0
+
+
+def test_concurrent_waves_reuse_the_entries_of_their_key(stub, monkeypatch):
+    """Two waves of eight threads on two keys, each thread holding its
+    entry while all eight do: the first wave adds one entry a thread and
+    captures each once; the second takes those entries and captures
+    nothing.  No entry is handed out while in use, the cache stays within
+    its limits, and every launch is counted once."""
+    import threading
+
+    monkeypatch.setattr(graphs, "_new_graph", _ThreadStub)
+    held, lock, twice = set(), threading.Lock(), []
+    acquire, release = graphs._acquire, graphs._release
+
+    def acquiring(*args):
+        entry = acquire(*args)
+        with lock:
+            if entry in held:
+                twice.append(entry)
+            held.add(entry)
+        return entry
+
+    def releasing(entry):
+        with lock:
+            held.discard(entry)
+        release(entry)
+
+    monkeypatch.setattr(graphs, "_acquire", acquiring)
+    monkeypatch.setattr(graphs, "_release", releasing)
+
+    def wave():
+        barrier = threading.Barrier(8)
+
+        def worker(i):
+            size = 2 + i % 2
+            k = torch.zeros(size, dtype=torch.float64)
+            with graphs.Loop("toy", {"k": k}, {"inc": torch.ones(size)},
+                             (1.0,)) as lp:
+                barrier.wait(timeout=30)
+                for _ in range(3):
+                    lp.run(_toy, 2)
+            assert torch.equal(k, torch.full((size,), 6.0,
+                                             dtype=torch.float64)), (i, k)
+
+        before = stub.CAPTURES, stub.REPLAYS
+        errors = _threads(worker, 8)
+        assert not errors, errors[:3]
+        return stub.CAPTURES - before[0], stub.REPLAYS - before[1]
+
+    assert wave() == (8, 16)
+    slots = set(stub._CACHE)
+    assert wave() == (0, 24)
+    assert set(stub._CACHE) == slots and not twice
+    _within_limits(stub)
+    assert sorted(len(e.graphs) for e in stub._CACHE.values()) == [1] * 8
+    # 2 waves x 8 threads x 3 chunks x 2 steps, 2 K1 and 1 K3 a step.
+    assert pivot_kernel.LAUNCHES == 2 * 8 * 3 * 2 * 2
+    assert batched_kernel.LAUNCHES_K3 == 2 * 8 * 3 * 2
+
+
+class _NeighbourStub(_ThreadStub):
+    """A capture during which another thread launches K1 five times before
+    the chunk is captured and five times after."""
+
+    def capture(self, fn):
+        import threading
+
+        def neighbour():
+            counters.add(vars(pivot_kernel), "LAUNCHES", 5)
+
+        out = None
+        for step in range(2):
+            t = threading.Thread(target=neighbour)
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+            if step == 0:
+                out = super().capture(fn)
+        return out
+
+
+def test_a_capture_counts_only_its_own_threads_launches(stub, monkeypatch):
+    """Another thread's launches during a capture stay counted, and the
+    graph records its own chunk's launches only."""
+    monkeypatch.setattr(graphs, "_new_graph", _NeighbourStub)
+    k = _solve(3, n=2)                  # warm-up and capture, 2 replays
+    assert torch.equal(k, torch.full((4,), 6.0, dtype=torch.float64))
+    assert pivot_kernel.LAUNCHES == 3 * 2 * 2 + 10
+    assert batched_kernel.LAUNCHES_K3 == 3 * 2
+    (graph, outside, steps), = next(iter(stub._CACHE.values())).graphs.values()
+    assert outside == [2 * 2, 0, 2, 0] and steps == []
+
+
+def test_counters_lose_no_update_under_threads(monkeypatch):
+    """Eight threads adding to one counter at once: the counter holds every
+    addition, and each thread's tally its own."""
+    monkeypatch.setattr(pivot_kernel, "LAUNCHES", 0)
+    tallies = {}
+
+    def worker(i):
+        before = counters.mine(vars(pivot_kernel), "LAUNCHES")
+        for _ in range(5000):
+            counters.add(vars(pivot_kernel), "LAUNCHES", i + 1)
+        tallies[i] = counters.mine(vars(pivot_kernel), "LAUNCHES") - before
+
+    assert not _threads(worker, 8)
+    assert pivot_kernel.LAUNCHES == 5000 * sum(range(1, 9))
+    assert tallies == {i: 5000 * (i + 1) for i in range(8)}
+
+
+def test_capture_streams_come_from_outside_torchs_pool(monkeypatch):
+    """Eight threads that warm up or capture at once each hold a stream no
+    other holds; a stream given back is taken again before one more is
+    made, per device; none is drawn from torch's pool of streams, which
+    every other caller draws from too."""
+    import threading
+
+    made = []
+
+    class Side:
+        def __init__(self, device):
+            self.device = device
+            made.append(self)
+
+    def pool(*args, **kwargs):
+        raise AssertionError("a capture stream drawn from torch's pool")
+
+    monkeypatch.setattr(graphs, "_new_side", Side)
+    monkeypatch.setattr(graphs, "_SIDE_IDLE", collections.defaultdict(list))
+    monkeypatch.setattr(torch.cuda, "Stream", pool)
+    held, barrier = {}, threading.Barrier(8)
+
+    def worker(i):
+        held[i] = graphs._take_side("cuda:0")
+        barrier.wait(timeout=30)            # all eight held at once
+        graphs._give_side("cuda:0", held[i])
+
+    assert not _threads(worker, 8)
+    assert len({id(s) for s in held.values()}) == 8 == len(made)
+    again = [graphs._take_side("cuda:0") for _ in range(8)]
+    assert {id(s) for s in again} == {id(s) for s in made}
+    assert graphs._take_side("cuda:0") not in made[:8] and len(made) == 9
+    for side in again:
+        graphs._give_side("cuda:0", side)
+    other = graphs._take_side("cuda:1")
+    assert other.device == "cuda:1" and len(made) == 10
 
 
 def test_cpu_tensors_and_the_eager_switch_run_the_body(monkeypatch):

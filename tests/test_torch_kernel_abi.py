@@ -75,7 +75,8 @@ def test_argtypes_match_the_c_signature(name):
 def test_every_entry_point_ends_with_the_stream(name):
     """Each kernel launches on the caller's stream, passed last (the graph
     reader ``graph_node_counts`` enqueues nothing: its last argument is its
-    output array)."""
+    output array; ``graph_stream_create``'s is where it writes the stream
+    it made)."""
     assert ENTRY_POINTS[name][1][-1] == "pointer"
 
 
@@ -83,6 +84,11 @@ def test_graph_node_counts_reads_one_graph_into_an_array():
     """A ``cudaGraph_t`` (a ``uint64``), the array's length, the array."""
     assert ENTRY_POINTS["graph_node_counts"] == (
         "int", ["uint64", "int64", "pointer"])
+
+
+def test_graph_stream_create_writes_one_stream():
+    """One argument: where the new stream's handle goes."""
+    assert ENTRY_POINTS["graph_stream_create"] == ("int", ["pointer"])
 
 
 def test_batched_steps_take_no_scratch():

@@ -13,7 +13,7 @@ _FORBIDDEN = re.compile(
     r"|from\s+simplex_tpu(\.|\s))", re.MULTILINE)
 
 
-def test_importing_the_port_loads_no_jax():
+def test_importing_the_port_loads_no_jax(tmp_path):
     code = ("import sys\n"
             "import simplex_tpu_torch, simplex_tpu_torch.cli\n"
             "import simplex_tpu_torch.models.dense\n"
@@ -43,17 +43,58 @@ def test_importing_the_port_loads_no_jax():
             "import simplex_tpu_torch.utils.solve_bench\n"
             "import simplex_tpu_torch.utils.sweep_bench\n"
             "import simplex_tpu_torch.bench\n"
+            "import simplex_tpu_torch.web_app\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'simplex_tpu' or m.startswith('simplex_tpu.')\n"
             "       or m == 'bench']\n"
             "assert not bad, bad\n"
             "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # The WSGI module makes its app when imported: on the CPU here.
+    env = dict(os.environ, PYTHONPATH=REPO, SIMPLEX_TPU_DEVICE="cpu",
+               SIMPLEX_TPU_OUTPUT_DIR=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_the_wsgi_module_serves_where_its_device_is(tmp_path):
+    """``simplex_tpu_torch.web_app`` imported with ``SIMPLEX_TPU_DEVICE=cpu``
+    holds a working app at module level; without that variable its device
+    is the card, so without a GPU the import raises."""
+    form = {"problem_type": "maximize", "objective[]": ["3", "5"],
+            "constraint_1[]": ["1", "0", "3"],
+            "constraint_2[]": ["0", "2", "2"],
+            "constraint_sign[]": ["<=", "<=", "<="],
+            "constraint_rhs[]": ["4", "12", "18"]}
+    serve = ("from simplex_tpu_torch.web_app import app\n"
+             "from simplex_tpu_torch.web.microweb import TestClient\n"
+             "c = TestClient(app)\n"
+             f"assert c.post('/new', data={form!r}).status_code == 200\n"
+             "r = c.post('/solve')\n"
+             "assert r.status_code == 200 and 'Solucion Factible' in r.text\n"
+             "print('Z', '36.0000' in r.text)\n")
+    env = {k: v for k, v in os.environ.items() if k != "SIMPLEX_TPU_DEVICE"}
+    env.update(PYTHONPATH=REPO, SIMPLEX_TPU_OUTPUT_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", serve], cwd=REPO,
+                         env=dict(env, SIMPLEX_TPU_DEVICE="cpu"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "Z True"
+    default = ("import torch\n"
+               "try:\n"
+               "    import simplex_tpu_torch.web_app\n"
+               "except RuntimeError as e:\n"
+               "    print('raised', torch.cuda.is_available(), e)\n"
+               "else:\n"
+               "    print('imported', torch.cuda.is_available())\n")
+    out = subprocess.run([sys.executable, "-c", default], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    said = out.stdout.strip()
+    assert (said.startswith("raised False") and "no CUDA device" in said
+            or said == "imported True"), said
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
@@ -120,5 +161,20 @@ def test_revised_sizes_tool_imports_no_jax():
 def test_sharded_steps_tool_imports_no_jax():
     """The sharded loop's before-and-after probe runs on the GPU machine."""
     path = os.path.join(REPO, "tools", "sharded_steps.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def test_web_report_tool_imports_no_jax():
+    """The netlib-scale web request probe runs on the GPU machine too."""
+    path = os.path.join(REPO, "tools", "web_report_size.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def test_load_waves_tool_imports_no_jax():
+    """The before-and-after waves of concurrent web users run on the GPU
+    machine too."""
+    path = os.path.join(REPO, "tools", "load_waves.py")
     with open(path, encoding="utf-8") as f:
         assert not _FORBIDDEN.search(f.read())
