@@ -1,0 +1,1 @@
+"""Found by name by ``lpbench.registry``."""
