@@ -2130,15 +2130,17 @@ def _busy(torch, label, fn, gpu):
 
 
 def _graph_stats(label):
-    """Log the graph cache: each entry's loop, graphs, capture seconds and
-    bytes on the card, and the chunks run so far."""
+    """Log the graph cache: each entry's loop, graphs and bytes on the
+    card, the chunks run so far and the process's capture seconds."""
     from simplex_tpu_torch.runtime import graphs
+    from simplex_tpu_torch.utils.profiling import span_stats
 
     stats = graphs.stats()
+    capture_s = span_stats().get("graphs.capture", {}).get("total_s", 0.0)
     log(f"[graphs-cache] after {label}: {len(stats)} entries, "
         f"{graphs.cache_bytes()} bytes on the card; captures "
-        f"{graphs.CAPTURES}, replays {graphs.REPLAYS}, eager chunks "
-        f"{graphs.EAGER_CHUNKS}; entries {json.dumps(stats)}")
+        f"{graphs.CAPTURES} in {capture_s!r} s, replays {graphs.REPLAYS}, "
+        f"eager chunks {graphs.EAGER_CHUNKS}; entries {json.dumps(stats)}")
 
 
 # Each loop's launches (the revised engine's steps) and seconds before its

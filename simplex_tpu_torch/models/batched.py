@@ -49,6 +49,7 @@ from ..core.problem import (
     split_free_variables,
 )
 from ..ops import batched as batched_ops
+from ..utils.profiling import recorded, trace_span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -589,28 +590,34 @@ class BatchedSimplexSolver:
     def __init__(self, config: SolverConfig = DEFAULT_CONFIG):
         self.config = config
 
+    @recorded("batched.solve_arrays")
     def solve_arrays(self, c, A, b, ops, maximize=True,
                      dtype=None, ub=None) -> BatchResult:
         """Uniform-shape path: the standard form is assembled on the device
         (:func:`compile_batch_on_device`) and solved in one call; with
         ``config.certify`` on (the default) every verdict is then
         f64-KKT-checked against the exact data and untrusted ones are
-        re-solved by the exact host engine.
+        re-solved by the exact host engine.  Each call is one solve record
+        (``utils/profiling.py``) with the spans ``batched.assemble``,
+        ``batched.run`` and ``batched.certify``.
 
         ``ub`` ((n,) or (B, n), entries in [0, +inf]): native upper bounds,
         solved by the bounded solver (kernel K3) at zero row cost; general
         lower bounds are lowered first by ``core.problem.normalize_bounds``
         (see :func:`solve_lp_sweep`).
         """
-        cb = compile_batch_on_device(
-            c, A, b, ops, maximize,
-            dtype=np.dtype(dtype or self.config.dtype), ub=ub,
-            device=self.config.device,
-        )
-        res = self._solve_compiled(cb)
+        with trace_span("batched.assemble"):
+            cb = compile_batch_on_device(
+                c, A, b, ops, maximize,
+                dtype=np.dtype(dtype or self.config.dtype), ub=ub,
+                device=self.config.device,
+            )
+        with trace_span("batched.run"):
+            res = self._solve_compiled(cb)
         if self.config.certify:
-            res = certify_uniform_result(res, c, A, b, ops, maximize,
-                                         ub=ub)
+            with trace_span("batched.certify"):
+                res = certify_uniform_result(res, c, A, b, ops, maximize,
+                                             ub=ub)
         return res
 
     def _solve_compiled(self, cb: CompiledBatch) -> BatchResult:
@@ -833,7 +840,9 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
       event before it assembles batch k+1 (``_assemble_on_device``);
     * batch k is certified on one worker thread, which touches numpy
       results only, while batch k+1 solves; batch k is yielded once its
-      certificate is done.
+      certificate is done.  Solve records are per thread, so each
+      certificate is a record of its own there, of kind
+      ``batched.certify`` (``utils/profiling.py``).
 
     Raises where ``config.device`` is a GPU and none is present.
     """
@@ -850,6 +859,7 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
         return (staging.stage(arrays, dev, side, defer=True), maxi,
                 with_art, batch)
 
+    certify = recorded("batched.certify")(certify_uniform_result)
     it = iter(batches)
     try:
         nxt = stage(next(it))
@@ -875,8 +885,7 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
             if not config.certify:
                 yield res
                 continue
-            done = pool.submit(certify_uniform_result, res, *raw[:4], maxi,
-                               ub=ub)
+            done = pool.submit(certify, res, *raw[:4], maxi, ub=ub)
             if pending is not None:
                 yield pending.result()
             pending = done

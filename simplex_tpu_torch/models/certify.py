@@ -37,6 +37,20 @@ from ..core.problem import (
     STATUS_UNBOUNDED,
     LinearProgram,
 )
+from ..runtime import counters
+from ..utils.profiling import count, trace_span
+
+# Instances re-solved on the exact host engine since the counter was last
+# reset to 0: every escalation loop here, and ``models/dense.py::solve_lp``,
+# on every thread.  The web app's ``/metrics`` exports it.
+ESCALATIONS = 0
+
+
+def count_escalation():
+    """One instance escalated: :data:`ESCALATIONS` and the ``escalations``
+    of the open solve record (``utils/profiling.py``) rise by one."""
+    counters.add(globals(), "ESCALATIONS")
+    count("escalations")
 
 
 def certify_bases_f64(A_std: np.ndarray, b_std: np.ndarray,
@@ -66,65 +80,68 @@ def certify_bases_f64(A_std: np.ndarray, b_std: np.ndarray,
     if check is None:
         check = np.ones((B_,), bool)
 
-    in_range = ~np.any((basis < 0) | (basis >= N), axis=1)
-    safe_basis = np.where(in_range[:, None], basis, 0)
+    with trace_span("certify.gather"):
+        in_range = ~np.any((basis < 0) | (basis >= N), axis=1)
+        safe_basis = np.where(in_range[:, None], basis, 0)
 
-    Bmat = np.take_along_axis(A_std, safe_basis[:, None, :], axis=2)
-    cB = np.take_along_axis(c_std, safe_basis, axis=1)
-    ok_solve = np.zeros((B_,), bool)
-    xB = np.zeros((B_, m))
-    y = np.zeros((B_, m))
-    sel = check & in_range
-    if np.any(sel):
-        idx = np.nonzero(sel)[0]
-        if m >= 512:
-            # Large-m regime (sharded row-block solves): ONE LU per
-            # instance serves both triangular solves — numpy's batched
-            # ``solve`` would factorize B twice (for B and Bᵀ), and at
-            # m=16k each factorization is ~45 s of host LAPACK.
-            from scipy.linalg import lu_factor, lu_solve
+        Bmat = np.take_along_axis(A_std, safe_basis[:, None, :], axis=2)
+        cB = np.take_along_axis(c_std, safe_basis, axis=1)
+    with trace_span("certify.lapack"):
+        ok_solve = np.zeros((B_,), bool)
+        xB = np.zeros((B_, m))
+        y = np.zeros((B_, m))
+        sel = check & in_range
+        if np.any(sel):
+            idx = np.nonzero(sel)[0]
+            if m >= 512:
+                # Large-m regime (sharded row-block solves): ONE LU per
+                # instance serves both triangular solves — numpy's batched
+                # ``solve`` would factorize B twice (for B and Bᵀ), and at
+                # m=16k each factorization is ~45 s of host LAPACK.
+                from scipy.linalg import lu_factor, lu_solve
 
-            for i in idx:
-                try:
-                    lu = lu_factor(Bmat[i])
-                    xB[i] = lu_solve(lu, b_std[i])
-                    y[i] = lu_solve(lu, cB[i], trans=1)
-                    ok_solve[i] = True
-                except (np.linalg.LinAlgError, ValueError):
-                    pass
-        else:
-            try:
-                xB[idx] = np.linalg.solve(
-                    Bmat[idx], b_std[idx][..., None])[..., 0]
-                y[idx] = np.linalg.solve(np.swapaxes(Bmat[idx], 1, 2),
-                                         cB[idx][..., None])[..., 0]
-                ok_solve[idx] = True
-            except np.linalg.LinAlgError:
-                # Some instance's basis matrix is singular: numpy's batched
-                # solve rejects the whole stack, so fall back per instance.
                 for i in idx:
                     try:
-                        xB[i] = np.linalg.solve(Bmat[i], b_std[i])
-                        y[i] = np.linalg.solve(Bmat[i].T, cB[i])
+                        lu = lu_factor(Bmat[i])
+                        xB[i] = lu_solve(lu, b_std[i])
+                        y[i] = lu_solve(lu, cB[i], trans=1)
                         ok_solve[i] = True
-                    except np.linalg.LinAlgError:
+                    except (np.linalg.LinAlgError, ValueError):
                         pass
-        finite = np.all(np.isfinite(xB), axis=1) & \
-            np.all(np.isfinite(y), axis=1)
-        ok_solve &= finite
+            else:
+                try:
+                    xB[idx] = np.linalg.solve(
+                        Bmat[idx], b_std[idx][..., None])[..., 0]
+                    y[idx] = np.linalg.solve(np.swapaxes(Bmat[idx], 1, 2),
+                                             cB[idx][..., None])[..., 0]
+                    ok_solve[idx] = True
+                except np.linalg.LinAlgError:
+                    # Some instance's basis matrix is singular: numpy's batched
+                    # solve rejects the whole stack, so fall back per instance.
+                    for i in idx:
+                        try:
+                            xB[i] = np.linalg.solve(Bmat[i], b_std[i])
+                            y[i] = np.linalg.solve(Bmat[i].T, cB[i])
+                            ok_solve[i] = True
+                        except np.linalg.LinAlgError:
+                            pass
+            finite = np.all(np.isfinite(xB), axis=1) & \
+                np.all(np.isfinite(y), axis=1)
+            ok_solve &= finite
 
-    rc = c_std - np.einsum("bm,bmn->bn", y, A_std)
-    scale = 1.0 + np.max(np.abs(b_std), axis=1, initial=0.0)
-    c_scale = 1.0 + np.max(np.abs(c_std), axis=1, initial=0.0)
-    prim_ok = ~np.any(xB < -tol * scale[:, None], axis=1)
-    art_basic = np.take_along_axis(art_mask, safe_basis, axis=1)
-    art_ok = ~np.any(art_basic & (np.abs(xB) > tol * scale[:, None]), axis=1)
-    dual_ok = np.all((~valid_mask) | (rc >= -tol * c_scale[:, None]), axis=1)
-    certified = check & in_range & ok_solve & prim_ok & art_ok & dual_ok
+    with trace_span("certify.check"):
+        rc = c_std - np.einsum("bm,bmn->bn", y, A_std)
+        scale = 1.0 + np.max(np.abs(b_std), axis=1, initial=0.0)
+        c_scale = 1.0 + np.max(np.abs(c_std), axis=1, initial=0.0)
+        prim_ok = ~np.any(xB < -tol * scale[:, None], axis=1)
+        art_basic = np.take_along_axis(art_mask, safe_basis, axis=1)
+        art_ok = ~np.any(art_basic & (np.abs(xB) > tol * scale[:, None]), axis=1)
+        dual_ok = np.all((~valid_mask) | (rc >= -tol * c_scale[:, None]), axis=1)
+        certified = check & in_range & ok_solve & prim_ok & art_ok & dual_ok
 
-    x_full = np.zeros((B_, N))
-    np.put_along_axis(x_full, safe_basis, xB, axis=1)
-    fun = np.einsum("bn,bn->b", c_std, x_full)
+        x_full = np.zeros((B_, N))
+        np.put_along_axis(x_full, safe_basis, xB, axis=1)
+        fun = np.einsum("bn,bn->b", c_std, x_full)
     return certified, x_full, fun
 
 
@@ -351,131 +368,136 @@ def certify_sweep_le_f64(status: np.ndarray, basis: np.ndarray,
     if ub is not None:
         ub = np.broadcast_to(np.asarray(ub, np.float64), (B_, n))
 
-    bidx = np.asarray(basis, np.int64)[:, :m]          # real rows only
-    is_struct = bidx < n
-    in_range = np.all(bidx < n + m, axis=1) & np.all(bidx >= 0, axis=1)
-    safe_col = np.where(is_struct, bidx, 0)
-    claimed_opt = status == STATUS_OPTIMAL
-    check = claimed_opt & in_range
+    with trace_span("certify.gather"):
+        bidx = np.asarray(basis, np.int64)[:, :m]          # real rows only
+        is_struct = bidx < n
+        in_range = np.all(bidx < n + m, axis=1) & np.all(bidx >= 0, axis=1)
+        safe_col = np.where(is_struct, bidx, 0)
+        claimed_opt = status == STATUS_OPTIMAL
+        check = claimed_opt & in_range
 
-    # at-upper state restricted to structural columns; basic columns are
-    # never at-upper.
-    if ub is not None:
-        at_up = (np.zeros((B_, n), bool) if at_upper is None
-                 else np.asarray(at_upper, bool)[:, :n].copy())
-        at_up &= np.isfinite(ub)
-        bs = np.where(is_struct, safe_col, n)          # n = scratch slot
-        at_up_ext = np.concatenate([at_up, np.zeros((B_, 1), bool)],
-                                   axis=1)
-        np.put_along_axis(at_up_ext, bs, False, axis=1)
-        at_up = at_up_ext[:, :n]
-        u_vec = np.where(at_up, ub, 0.0)
-        b_eff = b - np.einsum("bmn,bn->bm", A, u_vec)
-    else:
-        at_up = None
-        b_eff = b
-
-    # Basis matrix straight from raw data: structural columns from A via
-    # ONE flat fancy-index gather (take_along_axis on the 3-D view
-    # measured ~4 s per 65k chunk; the flat gather is ~5x faster), slack
-    # columns as unit entries scattered flat instead of materializing a
-    # (B, m, m) one-hot tensor.
-    idt = np.int32 if B_ * m * n < 2**31 else np.int64
-    gidx = ((np.arange(B_, dtype=idt)[:, None, None] * m
-             + np.arange(m, dtype=idt)[None, :, None]) * n
-            + safe_col[:, None, :].astype(idt))
-    Bmat = A.reshape(-1)[gidx].astype(np.float64)             # (B, m, m)
-    Bmat *= is_struct[:, None, :]
-    bb_i, ii = np.nonzero(~is_struct)
-    unit_rows = bidx[bb_i, ii] - n
-    ok_unit = (unit_rows >= 0) & (unit_rows < m)
-    flat_pos = ((bb_i[ok_unit] * m + unit_rows[ok_unit]) * m
-                + ii[ok_unit])
-    Bmat.reshape(-1)[flat_pos] = 1.0
-    cB = np.where(is_struct,
-                  np.take_along_axis(c_min, safe_col, axis=1), 0.0)
-
-    xB = np.zeros((B_, m))
-    y = np.zeros((B_, m))
-    ok_solve = np.zeros((B_,), bool)
-    idx = np.nonzero(check)[0]
-    if idx.size:
-        try:
-            xB[idx] = np.linalg.solve(Bmat[idx], b_eff[idx][..., None])[..., 0]
-            y[idx] = np.linalg.solve(np.swapaxes(Bmat[idx], 1, 2),
-                                     cB[idx][..., None])[..., 0]
-            ok_solve[idx] = True
-        except np.linalg.LinAlgError:
-            for i in idx:
-                try:
-                    xB[i] = np.linalg.solve(Bmat[i], b_eff[i])
-                    y[i] = np.linalg.solve(Bmat[i].T, cB[i])
-                    ok_solve[i] = True
-                except np.linalg.LinAlgError:
-                    pass
-        ok_solve &= np.all(np.isfinite(xB), axis=1) \
-            & np.all(np.isfinite(y), axis=1)
-
-    scale = 1.0 + np.max(np.abs(b), axis=1, initial=0.0)
-    c_scale = 1.0 + np.max(np.abs(c_min), axis=1, initial=0.0)
-    prim_ok = ~np.any(xB < -tol * scale[:, None], axis=1)
-    if ub is not None:
-        # Basic structural variables must respect their own upper bound.
-        ub_ext = np.concatenate([ub, np.full((B_, 1), np.inf)], axis=1)
-        ub_B = np.take_along_axis(
-            ub_ext, np.where(is_struct, safe_col, n), axis=1)
-        fin = np.isfinite(ub_B)
-        prim_ok &= ~np.any(fin & (xB > ub_B + tol * scale[:, None]), axis=1)
-
-    # Dual: rc over structural columns (one einsum) + slack rc = -y.
-    rc = c_min - np.einsum("bm,bmn->bn", y, A)         # (B, n)
-    basic_mask = np.zeros((B_, n + 1), bool)
-    np.put_along_axis(basic_mask, np.where(is_struct, safe_col, n),
-                      True, axis=1)
-    nonbasic = ~basic_mask[:, :n]
-    if ub is not None:
-        fixed = ub == 0.0
-        lo_ok = np.all(
-            ~(nonbasic & ~at_up & ~fixed)
-            | (rc >= -tol * c_scale[:, None]), axis=1)
-        up_ok = np.all(~(nonbasic & at_up)
-                       | (rc <= tol * c_scale[:, None]), axis=1)
-        dual_ok = lo_ok & up_ok
-    else:
-        dual_ok = np.all((~nonbasic) | (rc >= -tol * c_scale[:, None]),
-                         axis=1)
-    dual_ok &= np.all(y <= tol * c_scale[:, None], axis=1)  # slack rc = -y
-
-    certified = check & ok_solve & prim_ok & dual_ok
-
-    x = np.full((B_, n), np.nan)
-    fun_out = np.full((B_,), np.nan)
-    ci = np.nonzero(certified)[0]
-    if ci.size:
-        xs = np.zeros((len(ci), n + 1))
-        np.put_along_axis(
-            xs, np.where(is_struct[ci], safe_col[ci], n), xB[ci], axis=1)
-        x_struct = np.maximum(xs[:, :n], 0.0)
-        if at_up is not None:
-            x_struct = np.where(at_up[ci], ub[ci], x_struct)
-        x[ci] = x_struct
-        fun_out[ci] = np.einsum("bn,bn->b", c_min[ci], x_struct)
-
-    escalated = ~certified
-    for i in np.nonzero(escalated)[0]:
-        lp = LinearProgram(c=c[i], A=A[i], b=b[i],
-                           ops=np.full(m, -1), maximize=bool(maximize[i]),
-                           ub=(None if ub is None else ub[i]))
-        res = solve_lp_host_exact(lp)
-        status[i] = res.status
-        if res.success:
-            xi = np.asarray(res.x, np.float64)
-            x[i, : min(n, xi.shape[0])] = xi[:n]
-            fun_out[i] = res.fun
-            certified[i] = True
+        # at-upper state restricted to structural columns; basic columns are
+        # never at-upper.
+        if ub is not None:
+            at_up = (np.zeros((B_, n), bool) if at_upper is None
+                     else np.asarray(at_upper, bool)[:, :n].copy())
+            at_up &= np.isfinite(ub)
+            bs = np.where(is_struct, safe_col, n)          # n = scratch slot
+            at_up_ext = np.concatenate([at_up, np.zeros((B_, 1), bool)],
+                                       axis=1)
+            np.put_along_axis(at_up_ext, bs, False, axis=1)
+            at_up = at_up_ext[:, :n]
+            u_vec = np.where(at_up, ub, 0.0)
+            b_eff = b - np.einsum("bmn,bn->bm", A, u_vec)
         else:
-            certified[i] = res.status in (STATUS_INFEASIBLE,
-                                          STATUS_UNBOUNDED)
+            at_up = None
+            b_eff = b
+
+        # Basis matrix straight from raw data: structural columns from A via
+        # ONE flat fancy-index gather (take_along_axis on the 3-D view
+        # measured ~4 s per 65k chunk; the flat gather is ~5x faster), slack
+        # columns as unit entries scattered flat instead of materializing a
+        # (B, m, m) one-hot tensor.
+        idt = np.int32 if B_ * m * n < 2**31 else np.int64
+        gidx = ((np.arange(B_, dtype=idt)[:, None, None] * m
+                 + np.arange(m, dtype=idt)[None, :, None]) * n
+                + safe_col[:, None, :].astype(idt))
+        Bmat = A.reshape(-1)[gidx].astype(np.float64)             # (B, m, m)
+        Bmat *= is_struct[:, None, :]
+        bb_i, ii = np.nonzero(~is_struct)
+        unit_rows = bidx[bb_i, ii] - n
+        ok_unit = (unit_rows >= 0) & (unit_rows < m)
+        flat_pos = ((bb_i[ok_unit] * m + unit_rows[ok_unit]) * m
+                    + ii[ok_unit])
+        Bmat.reshape(-1)[flat_pos] = 1.0
+        cB = np.where(is_struct,
+                      np.take_along_axis(c_min, safe_col, axis=1), 0.0)
+
+    with trace_span("certify.lapack"):
+        xB = np.zeros((B_, m))
+        y = np.zeros((B_, m))
+        ok_solve = np.zeros((B_,), bool)
+        idx = np.nonzero(check)[0]
+        if idx.size:
+            try:
+                xB[idx] = np.linalg.solve(Bmat[idx], b_eff[idx][..., None])[..., 0]
+                y[idx] = np.linalg.solve(np.swapaxes(Bmat[idx], 1, 2),
+                                         cB[idx][..., None])[..., 0]
+                ok_solve[idx] = True
+            except np.linalg.LinAlgError:
+                for i in idx:
+                    try:
+                        xB[i] = np.linalg.solve(Bmat[i], b_eff[i])
+                        y[i] = np.linalg.solve(Bmat[i].T, cB[i])
+                        ok_solve[i] = True
+                    except np.linalg.LinAlgError:
+                        pass
+            ok_solve &= np.all(np.isfinite(xB), axis=1) \
+                & np.all(np.isfinite(y), axis=1)
+
+    with trace_span("certify.check"):
+        scale = 1.0 + np.max(np.abs(b), axis=1, initial=0.0)
+        c_scale = 1.0 + np.max(np.abs(c_min), axis=1, initial=0.0)
+        prim_ok = ~np.any(xB < -tol * scale[:, None], axis=1)
+        if ub is not None:
+            # Basic structural variables must respect their own upper bound.
+            ub_ext = np.concatenate([ub, np.full((B_, 1), np.inf)], axis=1)
+            ub_B = np.take_along_axis(
+                ub_ext, np.where(is_struct, safe_col, n), axis=1)
+            fin = np.isfinite(ub_B)
+            prim_ok &= ~np.any(fin & (xB > ub_B + tol * scale[:, None]), axis=1)
+
+        # Dual: rc over structural columns (one einsum) + slack rc = -y.
+        rc = c_min - np.einsum("bm,bmn->bn", y, A)         # (B, n)
+        basic_mask = np.zeros((B_, n + 1), bool)
+        np.put_along_axis(basic_mask, np.where(is_struct, safe_col, n),
+                          True, axis=1)
+        nonbasic = ~basic_mask[:, :n]
+        if ub is not None:
+            fixed = ub == 0.0
+            lo_ok = np.all(
+                ~(nonbasic & ~at_up & ~fixed)
+                | (rc >= -tol * c_scale[:, None]), axis=1)
+            up_ok = np.all(~(nonbasic & at_up)
+                           | (rc <= tol * c_scale[:, None]), axis=1)
+            dual_ok = lo_ok & up_ok
+        else:
+            dual_ok = np.all((~nonbasic) | (rc >= -tol * c_scale[:, None]),
+                             axis=1)
+        dual_ok &= np.all(y <= tol * c_scale[:, None], axis=1)  # slack rc = -y
+
+        certified = check & ok_solve & prim_ok & dual_ok
+
+        x = np.full((B_, n), np.nan)
+        fun_out = np.full((B_,), np.nan)
+        ci = np.nonzero(certified)[0]
+        if ci.size:
+            xs = np.zeros((len(ci), n + 1))
+            np.put_along_axis(
+                xs, np.where(is_struct[ci], safe_col[ci], n), xB[ci], axis=1)
+            x_struct = np.maximum(xs[:, :n], 0.0)
+            if at_up is not None:
+                x_struct = np.where(at_up[ci], ub[ci], x_struct)
+            x[ci] = x_struct
+            fun_out[ci] = np.einsum("bn,bn->b", c_min[ci], x_struct)
+
+    with trace_span("certify.escalate"):
+        escalated = ~certified
+        for i in np.nonzero(escalated)[0]:
+            count_escalation()
+            lp = LinearProgram(c=c[i], A=A[i], b=b[i],
+                               ops=np.full(m, -1), maximize=bool(maximize[i]),
+                               ub=(None if ub is None else ub[i]))
+            res = solve_lp_host_exact(lp)
+            status[i] = res.status
+            if res.success:
+                xi = np.asarray(res.x, np.float64)
+                x[i, : min(n, xi.shape[0])] = xi[:n]
+                fun_out[i] = res.fun
+                certified[i] = True
+            else:
+                certified[i] = res.status in (STATUS_INFEASIBLE,
+                                              STATUS_UNBOUNDED)
 
     return {
         "certified": certified,
@@ -560,17 +582,19 @@ def certify_and_escalate_raw(status: np.ndarray, basis: np.ndarray,
                 continue
         # Unbounded / iteration-limit claims, and anything the certificates
         # above could not prove, go to the exact host engine.
-        escalated[i] = True
-        res = solve_lp_host_exact(make_lp(int(i)))
-        status[i] = res.status
-        if res.success:
-            xi = np.asarray(res.x, np.float64)
-            x[i, : min(n, xi.shape[0])] = xi[:n]
-            fun_out[i] = res.fun
-            certified[i] = True
-        else:
-            certified[i] = res.status in (STATUS_INFEASIBLE,
-                                          STATUS_UNBOUNDED)
+        with trace_span("certify.escalate"):
+            escalated[i] = True
+            count_escalation()
+            res = solve_lp_host_exact(make_lp(int(i)))
+            status[i] = res.status
+            if res.success:
+                xi = np.asarray(res.x, np.float64)
+                x[i, : min(n, xi.shape[0])] = xi[:n]
+                fun_out[i] = res.fun
+                certified[i] = True
+            else:
+                certified[i] = res.status in (STATUS_INFEASIBLE,
+                                              STATUS_UNBOUNDED)
 
     return {
         "certified": certified,
@@ -643,16 +667,18 @@ def certify_and_escalate(status: np.ndarray, basis: np.ndarray,
         x[ci] = np.maximum(x_full[ci, :n_vars], 0.0)
         fun_out[ci] = fun[ci]
 
-    for i in np.nonzero(escalate)[0]:
-        res = solve_lp_host_exact(make_lp(int(i)))
-        status[i] = res.status
-        if res.success:
-            xi = np.asarray(res.x, np.float64)
-            x[i, : xi.shape[0]] = xi[:n_vars]
-            fun_out[i] = res.fun
-            ok[i] = True
-        else:
-            ok[i] = res.status in (STATUS_INFEASIBLE, STATUS_UNBOUNDED)
+    with trace_span("certify.escalate"):
+        for i in np.nonzero(escalate)[0]:
+            count_escalation()
+            res = solve_lp_host_exact(make_lp(int(i)))
+            status[i] = res.status
+            if res.success:
+                xi = np.asarray(res.x, np.float64)
+                x[i, : xi.shape[0]] = xi[:n_vars]
+                fun_out[i] = res.fun
+                ok[i] = True
+            else:
+                ok[i] = res.status in (STATUS_INFEASIBLE, STATUS_UNBOUNDED)
 
     return {
         "certified": ok,

@@ -41,6 +41,8 @@ from ..core.problem import (
     split_free_variables,
 )
 from ..ops import tableau as tableau_ops
+from ..utils.profiling import recorded, trace_span
+from .certify import count_escalation
 
 
 def _bucket_gentle(x: int, align: int = 8) -> int:
@@ -707,6 +709,7 @@ def _equilibrate_gate(lp: LinearProgram) -> bool:
 
 
 
+@recorded("dense.solve_lp")
 def solve_lp(lp: LinearProgram,
              config: SolverConfig = DEFAULT_CONFIG,
              warm_basis: Optional[np.ndarray] = None) -> SimplexResult:
@@ -716,7 +719,10 @@ def solve_lp(lp: LinearProgram,
     Same contract as ``simplex_tpu.models.dense.solve_lp``: Ruiz
     equilibration, bound and free-variable lowering, presolve, warm start
     from ``warm_basis``, the time-limit / warm-resume loop, and f64
-    certification with exact host escalation.
+    certification with exact host escalation.  Each call is a solve record
+    (``utils/profiling.py``; a call made inside one, a span of it) with
+    the spans ``dense.prepare`` (equilibration, presolve, the standard
+    form), ``dense.loop``, ``dense.finalize`` and ``certify.escalate``.
     """
     t0 = time.perf_counter()
     dtype, torch_dtype = resolve_dtype(config.dtype)
@@ -725,7 +731,8 @@ def solve_lp(lp: LinearProgram,
     if config.presolve and _equilibrate_gate(lp):
         from ..core.presolve import equilibrate
 
-        lp_e, eq = equilibrate(lp)
+        with trace_span("dense.prepare"):
+            lp_e, eq = equilibrate(lp)
         if not eq.identity:
             res = solve_lp(lp_e, config, warm_basis)
             if res.x is not None:
@@ -767,7 +774,8 @@ def solve_lp(lp: LinearProgram,
     if config.presolve and warm_basis is None:
         from ..core.presolve import presolve as _presolve
 
-        pr = _presolve(lp)
+        with trace_span("dense.prepare"):
+            pr = _presolve(lp)
         if pr.decided:
             return SimplexResult(
                 x=None, fun=None, status=pr.status, success=False,
@@ -804,20 +812,21 @@ def solve_lp(lp: LinearProgram,
                              message=STATUS_MESSAGES[0], nit=0,
                              z=0.0, solve_time=time.perf_counter() - t0)
 
-    row_pad, col_pad = _pad_plan(lp)
-    sf64 = compile_standard_form(lp, row_pad=row_pad, col_pad=col_pad,
-                                 dtype=np.float64)
-    sf = dataclasses.replace(
-        sf64,
-        tableau=sf64.tableau.astype(dtype),
-        obj_row_p1=sf64.obj_row_p1.astype(dtype),
-        obj_row_p2=sf64.obj_row_p2.astype(dtype),
-    )
+    with trace_span("dense.prepare"):
+        row_pad, col_pad = _pad_plan(lp)
+        sf64 = compile_standard_form(lp, row_pad=row_pad, col_pad=col_pad,
+                                     dtype=np.float64)
+        sf = dataclasses.replace(
+            sf64,
+            tableau=sf64.tableau.astype(dtype),
+            obj_row_p1=sf64.obj_row_p1.astype(dtype),
+            obj_row_p2=sf64.obj_row_p2.astype(dtype),
+        )
 
-    if warm_basis is not None:
-        warm = _try_warm_start(sf, warm_basis)
-        if warm is not None:
-            sf = warm
+        if warm_basis is not None:
+            warm = _try_warm_start(sf, warm_basis)
+            if warm is not None:
+                sf = warm
 
     max_iters = min(config.max_iters, 50 * (sf.m_pad + sf.n_pad))
     bland_after = min(config.bland_after, max_iters // 2)
@@ -831,58 +840,62 @@ def solve_lp(lp: LinearProgram,
     # Wall-clock budget: chunks of the full iteration budget, resuming a
     # still-running solve from its basis through the warm-start path (see
     # the JAX function).
-    chunk = int(max_iters)
-    sf_run = sf
-    nit = 0
-    while True:
-        state = tableau_ops.state_from_standard_form(sf_run, device,
-                                                     torch_dtype)
-        T, basis, status, iters = tableau_ops.solve_tableau(
-            **state,
-            need_phase1=sf_run.need_phase1,
-            tol=tol,
-            max_iters=chunk,
-            bland_after=int(bland_after),
-            refactor_every=int(refactor_every),
-            devex=config.pivot_rule == "devex",
-        )
-        basis_np = basis.cpu().numpy().astype(np.int32)
-        nit += iters
-        if status == 1 and iters < chunk:
-            break   # early numeric-stall exit, escalated to f64 below
-        if status != 1 or nit >= config.max_iters:
-            break
-        if config.time_limit is not None and \
-                time.perf_counter() - t0 > config.time_limit:
-            break
-        warm = _try_warm_start(sf, basis_np)
-        if warm is None:
-            break                      # cannot resume: report the cap
-        sf_run = warm
+    with trace_span("dense.loop"):
+        chunk = int(max_iters)
+        sf_run = sf
+        nit = 0
+        while True:
+            state = tableau_ops.state_from_standard_form(sf_run, device,
+                                                         torch_dtype)
+            T, basis, status, iters = tableau_ops.solve_tableau(
+                **state,
+                need_phase1=sf_run.need_phase1,
+                tol=tol,
+                max_iters=chunk,
+                bland_after=int(bland_after),
+                refactor_every=int(refactor_every),
+                devex=config.pivot_rule == "devex",
+            )
+            basis_np = basis.cpu().numpy().astype(np.int32)
+            nit += iters
+            if status == 1 and iters < chunk:
+                break   # early numeric-stall exit, escalated to f64 below
+            if status != 1 or nit >= config.max_iters:
+                break
+            if config.time_limit is not None and \
+                    time.perf_counter() - t0 > config.time_limit:
+                break
+            warm = _try_warm_start(sf, basis_np)
+            if warm is None:
+                break                      # cannot resume: report the cap
+            sf_run = warm
 
     # f64 verdict certification + escalation (see the JAX function).
     escalated = False
     certified, x_full, duals, reduced = False, None, None, None
-    if status == STATUS_OPTIMAL:
-        certified, x_full, duals, reduced = _finalize_on_host(
-            sf, lp, basis_np, sf64=sf64)
-        escalated = not certified
-    elif status in (2, 3):
-        escalated = True
-    elif status == 1 and nit < config.max_iters:
-        escalated = True
-    if escalated:
-        status, basis_np, nit2 = _host_simplex_f64(sf64)
-        nit += nit2
+    with trace_span("dense.finalize"):
         if status == STATUS_OPTIMAL:
             certified, x_full, duals, reduced = _finalize_on_host(
                 sf, lp, basis_np, sf64=sf64)
-            if x_full is None:
-                return SimplexResult(
-                    x=None, fun=None, status=STATUS_ITERATION_LIMIT,
-                    success=False, message=STATUS_MESSAGES[1], nit=nit,
-                    basis=basis_np, solve_time=time.perf_counter() - t0,
-                    escalated=True)
+            escalated = not certified
+        elif status in (2, 3):
+            escalated = True
+        elif status == 1 and nit < config.max_iters:
+            escalated = True
+    if escalated:
+        with trace_span("certify.escalate"):
+            count_escalation()
+            status, basis_np, nit2 = _host_simplex_f64(sf64)
+            nit += nit2
+            if status == STATUS_OPTIMAL:
+                certified, x_full, duals, reduced = _finalize_on_host(
+                    sf, lp, basis_np, sf64=sf64)
+                if x_full is None:
+                    return SimplexResult(
+                        x=None, fun=None, status=STATUS_ITERATION_LIMIT,
+                        success=False, message=STATUS_MESSAGES[1], nit=nit,
+                        basis=basis_np, solve_time=time.perf_counter() - t0,
+                        escalated=True)
 
     if status != STATUS_OPTIMAL:
         return SimplexResult(
@@ -897,9 +910,11 @@ def solve_lp(lp: LinearProgram,
         x = x_full[: lp.n_vars]
         fun = float(c_min @ x)
     else:
-        x_dev, z_min_dev = tableau_ops.extract_solution(T, basis, sf.n_vars)
-        x = x_dev.cpu().numpy().astype(np.float64)
-        fun = float(z_min_dev)
+        with trace_span("dense.finalize"):
+            x_dev, z_min_dev = tableau_ops.extract_solution(T, basis,
+                                                            sf.n_vars)
+            x = x_dev.cpu().numpy().astype(np.float64)
+            fun = float(z_min_dev)
 
     z_user = (-fun if lp.maximize else fun) + 0.0  # +0.0 normalizes -0.0
     return SimplexResult(

@@ -59,6 +59,7 @@ import torch.distributed as dist
 
 from ..config import torch_device
 from ..runtime import graphs
+from ..utils.profiling import recorded, trace_span
 from ..core.problem import (
     STATUS_INFEASIBLE,
     STATUS_ITERATION_LIMIT,
@@ -794,6 +795,7 @@ def _world_size():
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+@recorded("sharded.solve_arrays")
 def solve_arrays_sharded(c, A, b, ops, maximize=True, mesh: Mesh = None,
                          dtype=np.float32, tol: float = 1e-6,
                          max_iters: int = 4096, bland_after: int = 1024,
@@ -808,32 +810,31 @@ def solve_arrays_sharded(c, A, b, ops, maximize=True, mesh: Mesh = None,
     ``x``, ``z``, ``status``, ``iters``, and with ``certify`` (f64 KKT
     certification and exact host escalation, ``models/certify.py``)
     ``certified`` and ``escalated``.  ``ub`` ((n,) or (B, n)): native upper
-    bounds.  ``mesh`` defaults to every rank on the row axis.  The stages
-    run under ``torch.profiler.record_function`` spans named
+    bounds.  ``mesh`` defaults to every rank on the row axis.  Each call
+    is a solve record (``utils/profiling.py``) whose stages are the spans
     ``sharded.assemble``, ``.stage``, ``.solve``, ``.extract`` and
     ``.certify``.
     """
     dev = torch_device(device)
     if mesh is None:
         mesh = make_mesh(batch=1, row=_world_size())
-    span = torch.profiler.record_function
     B = np.shape(A)[0]
 
-    with span("sharded.assemble"):
+    with trace_span("sharded.assemble"):
         cb, arrays, bounded = compile_sharded(
             c, A, b, ops, maximize, mesh.shape["batch"], mesh.shape["row"],
             dtype, ub)
-    with span("sharded.stage"):
+    with trace_span("sharded.stage"):
         args = stage_shards(arrays, mesh, dev)
         # The host tableau is dropped before the solve.
         cb.T0 = arrays[0] = arrays[2] = None
-    with span("sharded.solve"):
+    with trace_span("sharded.solve"):
         T_out, basis_out, obj_out, status, iters, at_up = \
             solve_tableau_sharded(
                 *args, mesh=mesh, tol=tol, max_iters=max_iters,
                 bland_after=bland_after, refactor_every=refactor_every,
                 devex=devex, bounded=bounded)
-    with span("sharded.extract"):
+    with trace_span("sharded.extract"):
         x, z_min = extract_solution_sharded(
             T_out, basis_out, obj_out, args[9], cb.n_vars,
             at_upper=(at_up if bounded else None),
@@ -861,7 +862,7 @@ def solve_arrays_sharded(c, A, b, ops, maximize=True, mesh: Mesh = None,
         # instance, no m x N f64 standard form.
         from ..models.certify import certify_and_escalate_raw
 
-        with span("sharded.certify"):
+        with trace_span("sharded.certify"):
             fix = certify_and_escalate_raw(
                 status, basis_np, c, A, b, ops, maxi, ub=ub,
                 at_upper=at_up_np)

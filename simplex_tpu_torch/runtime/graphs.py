@@ -86,12 +86,12 @@ import collections
 import ctypes
 import itertools
 import threading
-import time
 import warnings
 from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..utils.profiling import trace_span
 from . import counters
 
 # The most entries, and the most bytes of static buffers and graph pools on
@@ -428,7 +428,6 @@ class _Entry:
             self.consts = {k: torch.empty_like(v) for k, v in consts.items()}
         self.buffer_bytes = _nbytes(state) + _nbytes(consts)
         self.pool_bytes = 0
-        self.capture_s = 0.0
         self.pool = None
         self.graphs = {}            # variant -> (graph, launches a replay)
         self.busy = False
@@ -444,8 +443,10 @@ class _Entry:
 
     def run(self, body, static, args):
         """One chunk: a replay, or the warm-up and capture of a new
-        variant.  Returns the launches of each step of a replay, which the
-        loop adds once it knows how many ran (:meth:`Loop.read`)."""
+        variant (the capture, with its wait for another thread's, is the
+        span ``graphs.capture``; the warm-up is not).  Returns the launches of
+        each step of a replay, which the loop adds once it knows how many
+        ran (:meth:`Loop.read`)."""
         hit = self.graphs.get(args)
         if hit is not None:
             graph, launches, step_launches = hit
@@ -460,14 +461,14 @@ class _Entry:
         if self.pool is None:
             self.pool = _new_pool(self.device)
         graph = _new_graph(self.device, self.pool)
-        # The warm-up is this chunk's real work, eager and counted.
+        # The warm-up is this chunk's real work, eager and counted (and, in
+        # a new process, where its kernels are first built or loaded).
         graph.warm_up(chunk)
         counters.add(globals(), "EAGER_CHUNKS")
         before = _own_counters()
         rec = _CAPTURING.rec = _Record(graph)
-        t0 = time.perf_counter()
         try:
-            with _CAPTURE_LOCK:
+            with trace_span("graphs.capture"), _CAPTURE_LOCK:
                 self.pool_bytes += max(graph.capture(chunk), 0)
         finally:
             _CAPTURING.rec = None
@@ -475,7 +476,6 @@ class _Entry:
             # is set back.
             enqueued = [b - a for a, b in zip(before, _own_counters())]
             _add_counters([-n for n in enqueued])
-        self.capture_s += time.perf_counter() - t0
         # The launches outside any step, and those of each step.
         outside = [n - sum(s[i] for s in rec.steps)
                    for i, n in enumerate(enqueued)]
@@ -589,12 +589,13 @@ def clear():
 
 
 def stats():
-    """One record a cache entry: its loop, its graphs, their capture
-    seconds, the bytes it holds on the card (buffers and pool) and whether
-    a solve is using it."""
+    """One record a cache entry: its loop, its graphs, the bytes it holds
+    on the card (buffers and pool) and whether a solve is using it.  The
+    seconds of the captures are the span ``graphs.capture``'s totals
+    (``utils/profiling.py::span_stats``)."""
     with _LOCK:
         return [{"loop": e.key[0], "graphs": len(e.graphs),
-                 "capture_s": e.capture_s, "buffer_bytes": e.buffer_bytes,
+                 "buffer_bytes": e.buffer_bytes,
                  "pool_bytes": e.pool_bytes, "busy": e.busy}
                 for e in _CACHE.values()]
 
@@ -710,9 +711,11 @@ class Loop:
         """The host's one read after a chunk: ``vals`` (0-d tensors) as
         Python numbers through ``dtype``, read in one transfer with the
         chunk's step count, which adds the launches of the steps that a
-        replay ran to the kernels' counters."""
-        out = torch.stack([v.to(dtype) for v in
-                           (*vals, self.state["steps"])]).tolist()
+        replay ran to the kernels' counters.  The transfer, where the host
+        waits for the card, is the span ``graphs.read``."""
+        with trace_span("graphs.read"):
+            out = torch.stack([v.to(dtype) for v in
+                               (*vals, self.state["steps"])]).tolist()
         pending, self._pending = self._pending, None
         ran = int(out.pop())
         counters.add(globals(), "STEPS", ran)

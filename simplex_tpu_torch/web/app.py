@@ -19,7 +19,8 @@ and messages.  ``/solve`` runs the port's orchestrator on
 ``config.device`` (``SolverConfig.from_env()`` unless the factory is given
 a config; ``cuda`` by default), and the factory raises where that device
 is a GPU and none is present, so the app never solves on the CPU unasked.
-``/metrics`` reads the port's ``utils/profiling.DEFAULT_METRICS``.
+``/metrics`` reads the port's ``utils/profiling.DEFAULT_METRICS``, its
+span totals and ``models/certify.ESCALATIONS``.
 """
 from __future__ import annotations
 
@@ -234,12 +235,15 @@ def init_app(storage: StorageService = None,
     @app.route("/metrics", methods=["GET"])
     def metrics(ctx):
         # Additive observability endpoint (the reference has none,
-        # SURVEY.md §5.5): aggregate solve counters as JSON.
+        # SURVEY.md §5.5): aggregate solve counters as JSON, with the
+        # instances the certifiers re-solved on the exact host engine.
         import json as _json
 
+        from ..models import certify
         from ..utils.profiling import DEFAULT_METRICS, span_stats
         body = _json.dumps({"solves": DEFAULT_METRICS.summary(),
-                            "spans": span_stats()})
+                            "spans": span_stats(),
+                            "escalations": certify.ESCALATIONS})
         return Response(body, content_type="application/json")
 
     return app

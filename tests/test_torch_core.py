@@ -6,8 +6,9 @@ storage, visualization and PDF services, the MPS reader, the CLI prompts,
 the web framework with its templates, the native host engine with its C++
 source, and the numpy helpers of ``models/batched.py`` and
 ``models/dense.py``.  These tests hold each copy to its source: the text
-(apart from a module's one header line and the reference-project path
-prefix in docstrings) and the results on the same inputs.
+(apart from a module's one header line, the reference-project path
+prefix in docstrings, and the certifier's stage spans and escalation
+counter) and the results on the same inputs.
 """
 import inspect
 import os
@@ -57,6 +58,49 @@ BATCHED_HELPERS = ["_round_up", "BatchResult", "CompiledBatch",
                    "certify_uniform_result", "solve_lp_sweep"]
 
 
+# Copies that carry the port's stage spans and escalation counter
+# (``utils/profiling.py``): apart from them they are the original's text.
+INSTRUMENTED = {"models/certify.py"}
+_PRELUDE = """from ..runtime import counters
+from ..utils.profiling import count, trace_span
+
+# Instances re-solved on the exact host engine since the counter was last
+# reset to 0: every escalation loop here, and ``models/dense.py::solve_lp``,
+# on every thread.  The web app's ``/metrics`` exports it.
+ESCALATIONS = 0
+
+
+def count_escalation():
+    \"\"\"One instance escalated: :data:`ESCALATIONS` and the ``escalations``
+    of the open solve record (``utils/profiling.py``) rise by one.\"\"\"
+    counters.add(globals(), "ESCALATIONS")
+    count("escalations")
+"""
+_SPAN = re.compile(r" *with trace_span\(\"[\w.]+\"\):\Z")
+
+
+def _without_instrumentation(text):
+    """``text`` without the port's instrumentation: the counter's prelude,
+    each ``count_escalation()`` line, and each ``with trace_span(...):``
+    line, with its block dedented."""
+    assert text.count(_PRELUDE) == 1, "the counter's prelude is missing"
+    text = text.replace(_PRELUDE, "")
+    out, opened = [], []
+    for line in text.split("\n"):
+        if line.strip():
+            indent = len(line) - len(line.lstrip())
+            while opened and indent <= opened[-1]:
+                opened.pop()
+            if _SPAN.match(line):
+                opened.append(indent)
+                continue
+            if line.strip() == "count_escalation()":
+                continue
+            line = line[4 * len(opened):]
+        out.append(line)
+    return "\n".join(out)
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_verbatim(rel):
     with open(os.path.join(REPO, "simplex_tpu", rel), encoding="utf-8") as f:
@@ -67,6 +111,8 @@ def test_copy_is_verbatim(rel):
     comment = "//" if rel.endswith(".cpp") else "#"
     assert header == (f"{comment} Copied from simplex_tpu/{rel}; keep in "
                       "step (tests/test_torch_core.py).")
+    if rel in INSTRUMENTED:
+        copy = _without_instrumentation(copy)
     assert copy == re.sub(r"/\w+/reference/", "", src)
 
 

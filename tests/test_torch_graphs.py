@@ -8,12 +8,15 @@ outputs' bits); the batched stream's private callback, once a batch, after
 the previous batch's first chunk.  On the card (``gpu``): every loop run
 as replayed graphs against the same loop run eagerly, bit for bit, with
 the same kernel launches; and the replayed chunks' launches held to the
-steps the loops need (no kernel after a chunk's verdict).  Nothing here
-imports JAX, so on a machine with a card and no JAX:
+steps the loops need (no kernel after a chunk's verdict).  No span opens
+inside a chunk body, and a capture and each host read are spans of the
+solve (``utils/profiling.py``).  Nothing here imports JAX, so on a
+machine with a card and no JAX:
 
     python -m pytest tests/test_torch_graphs.py -m gpu --noconftest
 """
 import collections
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ from simplex_tpu_torch.ops import batched as tb
 from simplex_tpu_torch.ops import batched_kernel, pivot_kernel
 from simplex_tpu_torch.ops import tableau as tt
 from simplex_tpu_torch.runtime import counters, graphs, staging
+from simplex_tpu_torch.utils import profiling
 
 # Each case of _torch_loop_cases.py in float64 on the CPU, as the loops
 # computed it before their chunks were factored into bodies.
@@ -164,6 +168,35 @@ def test_chunk_bodies_give_the_loops_recorded_results(case):
     assert graphs.EAGER_CHUNKS - before >= 2      # several chunks ran
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_no_span_opens_inside_a_chunk_body(case, monkeypatch):
+    """Spans sit at stage boundaries: no ``record_function`` opens while
+    a loop's chunk body runs (the body a CUDA graph captures)."""
+    real_run, real_span = graphs.Loop.run, torch.profiler.record_function
+    running, ran, opened = [], [], []
+
+    def span(name, *args, **kwargs):
+        if running:
+            opened.append(name)
+        return real_span(name, *args, **kwargs)
+
+    def run(self, body, *args):
+        def watched(*a):
+            running.append(1)
+            ran.append(1)
+            try:
+                return body(*a)
+            finally:
+                running.pop()
+        return real_run(self, watched, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", span)
+    monkeypatch.setattr(graphs.Loop, "run", run)
+    with profiling.solve_record("loop.case"):
+        CASES[case](CPU, torch.float64)
+    assert len(ran) >= 2 and opened == []
+
+
 class _StubGraph:
     """A CUDA graph's contract on the CPU: the warm-up runs the chunk, the
     capture records it and runs nothing (its writes are dropped), a replay
@@ -239,6 +272,49 @@ def test_replays_add_the_launches_their_capture_enqueued(stub):
     assert (stub.CAPTURES, stub.REPLAYS, stub.EAGER_CHUNKS) == (1, 4, 1)
     assert pivot_kernel.LAUNCHES == 5 * 3 * 2
     assert batched_kernel.LAUNCHES_K3 == 5 * 3
+
+
+def test_a_capture_and_each_host_read_are_spans_of_the_solve(stub,
+                                                             monkeypatch):
+    """A new variant's capture is one ``graphs.capture`` span, which holds
+    the capture and not the eager warm-up before it (where a new process
+    builds its kernels); each host read is one ``graphs.read``; replays
+    add no span."""
+    times = {}
+
+    def timed(name, call):
+        def run(self, fn):
+            t0 = time.perf_counter()
+            out = call(self, fn)
+            times[name] = (t0, time.perf_counter())
+            return out
+        return run
+
+    monkeypatch.setattr(_StubGraph, "warm_up",
+                        timed("warm_up", _StubGraph.warm_up))
+    monkeypatch.setattr(_StubGraph, "capture",
+                        timed("capture", _StubGraph.capture))
+    state = {"k": torch.zeros(4, dtype=torch.float64),
+             "steps": torch.zeros((), dtype=torch.int64)}
+    before = profiling.span_stats().get("graphs.capture", {"count": 0})
+    with profiling.solve_record("toy.solve") as rec:
+        with graphs.Loop("toy.spans", state, {"inc": torch.ones(4)},
+                         (1.0,)) as lp:
+            for _ in range(3):
+                lp.run(_toy, 2)
+                lp.read()
+    assert torch.equal(state["k"], torch.full((4,), 6.0,
+                                              dtype=torch.float64))
+    assert [(n, p) for n, p, _, _ in rec["spans"]] == [
+        ("graphs.capture", "toy.solve"), ("graphs.read", "toy.solve"),
+        ("graphs.read", "toy.solve"), ("graphs.read", "toy.solve"),
+        ("toy.solve", None)]
+    assert stub.CAPTURES == 1 and stub.REPLAYS == 2
+    (_, _, c0, c1), = [s for s in rec["spans"] if s[0] == "graphs.capture"]
+    assert times["warm_up"][1] <= c0
+    assert c0 <= times["capture"][0] and times["capture"][1] <= c1
+    after = profiling.span_stats()["graphs.capture"]
+    assert after["count"] == before["count"] + 1
 
 
 def test_same_key_reuses_the_entry_and_its_graphs(stub):

@@ -14,6 +14,7 @@ from simplex_tpu.services.storage import StorageService as JStorage
 from simplex_tpu.web.app import init_app as j_init_app
 from simplex_tpu.web.microweb import TestClient as JClient
 from simplex_tpu_torch.config import SolverConfig
+from simplex_tpu_torch.models import certify as t_certify
 from simplex_tpu_torch.services.storage import StorageService
 from simplex_tpu_torch.utils import profiling
 from simplex_tpu_torch.web.app import init_app
@@ -222,6 +223,14 @@ def test_metrics_endpoint_shows_the_solve_record(client):
     rec = profiling.DEFAULT_METRICS.records[n_records]
     assert (rec.engine, rec.status, rec.n_vars, rec.n_cons) == \
         ("dense", 0, 2, 3)
+
+
+def test_metrics_endpoint_exports_the_escalation_counter(client):
+    before = json.loads(client.get("/metrics").text)["escalations"]
+    assert before == t_certify.ESCALATIONS
+    t_certify.count_escalation()
+    assert json.loads(client.get("/metrics").text)["escalations"] == \
+        before + 1
 
 
 def test_load_mps_upload(client):
