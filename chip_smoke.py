@@ -45,8 +45,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 8. the batched path at full width: ``BatchedSimplexSolver.solve_arrays``
    on the 16384 x (30x50) batch of ``bench.py::bench_batched_solve``,
    certified, checked against HiGHS on a sample, with the K2 launch count
-   of that run and one more run under ``torch.profiler`` (K2's share of
-   the device time); then a 1024 x (30x50) batch with ``>=`` and ``=`` rows
+   of that run and its one launch of the certifier kernel
+   (``csrc/certify_le.cu``); the kernel on that solve's bases, with
+   planted failures, against its twin on the card, both timed; one more
+   run under ``torch.profiler`` (K2's share of the device time); then a 1024 x (30x50) batch with ``>=`` and ``=`` rows
    through the two-phase loop, every verdict checked against HiGHS;
 9. K3 (``csrc/fused_pivot_step_bounded.cu``) against its plain PyTorch
    twin on the card: eight successive steps, after three twin steps that
@@ -121,12 +123,14 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     ``reoptimize`` an instance, K1);
 19. the batched stream (``models/batched.solve_arrays_stream``) on 4
     chunks of 65536 x (30x50) (``bench_stream_exact``'s chunk, seeds
-    300+k), certified: chunk 0 equal to ``solve_arrays`` bit for bit, the
+    300+k), certified: chunk 0 equal bit for bit to ``solve_arrays``
+    certified on the host as the stream certifies (``solve_arrays``
+    certifies it on the card: x and z within 1e-12 of that), the
     certificate of chunk k overlapping the solve of chunk k+1 on the host
     clock, and, under ``torch.profiler`` over two chunks, an upload on the
     side stream overlapping a K2 launch; then a mixed stream of 4 x 16384
     (phase 8's and phase 11's batches in turns), each equal to
-    ``solve_arrays``, K2 and K3 both launched;
+    ``solve_arrays`` certified on the host, K2 and K3 both launched;
 20. the row-sharded path (``parallel/sharded.py``), through a one-rank
     NCCL group that ``parallel.distributed.initialize`` builds: (a) a
     mixed and a bounded 256 x (30x50) batch bit-equal (status, basis,
@@ -214,6 +218,7 @@ card's name and power limit as ``nvidia-smi`` prints them; the line before
 that the kernel record (JSON); the last line is ``{"ok": true, "device":
 {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
@@ -991,20 +996,29 @@ def _gate(z_ref, z):
     return abs(z - z_ref) <= 1e-6 * (1.0 + abs(z_ref))
 
 
-def phase_batched(torch, pt, bk, gpu, B=16384):
+def phase_batched(torch, pt, bk, ck, gpu, B=16384):
     """The batched path through its entry point; returns the K2 launches
-    of the full-width solve."""
+    of the full-width solve and :func:`phase_certify_kernel`'s dict."""
     solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
     c, A, b, ops = bench_batch(B)
     warm = solver.solve_arrays(*bench_batch(256), maximize=True)
     check(bool(np.all(warm.status == 0)), "warm-up batch not all optimal")
 
     bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    ck.LAUNCHES_CERT = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solver.solve_arrays(c, A, b, ops, maximize=True)
     wall = time.perf_counter() - t0
     launches_full, nit_full = bk.LAUNCHES, res.nit
+    check(ck.LAUNCHES_CERT == 1, f"the certifier kernel launched "
+          f"{ck.LAUNCHES_CERT}x in the certified solve, not once")
+    from simplex_tpu_torch.utils import profiling
+
+    fallback = profiling.recent("batched.solve_arrays")[-1]["counts"] \
+        .get("certify_fallback")
+    check(fallback is not None, "the solve record holds no "
+          "certify_fallback count")
 
     check(res.status.shape == (B,) and bool(np.all(res.status == 0)),
           f"{int(np.sum(res.status != 0))} of {B} instances not optimal")
@@ -1027,8 +1041,10 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
         f"escalated={res.n_escalated}, device solve {res.solve_time!r} s "
         f"(with syncs), end-to-end wall {wall!r} s = {B / wall!r} LPs/s, "
         f"pivots mean {float(res.pivots.mean())!r} max {pmax}, nit "
-        f"{res.nit}, K2 launches {launches_full}; z within 1e-6(1+|z|) of "
-        f"HiGHS on 256 sampled ({highs_s!r} s on the host)")
+        f"{res.nit}, K2 launches {launches_full}, certifier launches 1 "
+        f"({fallback} instances left to the host copy); z within "
+        f"1e-6(1+|z|) of HiGHS on 256 sampled ({highs_s!r} s on the host)")
+    cert = phase_certify_kernel(torch, ck, res, c, A, b, fallback, gpu)
     _profile_solve(torch, lambda: solver.solve_arrays(c, A, b, ops,
                                                       maximize=True),
                    "fused_pivot_step_kernel", "K2", "batched", gpu)
@@ -1077,7 +1093,70 @@ def phase_batched(torch, pt, bk, gpu, B=16384):
                "of the two-phase loop (1024 mixed)", mixed_launches,
                mixed_nit, {k: v["_solve_loop"] for k, v in
                            mixed_times.items()}, gpu, exact=True)
-    return launches_full
+    return launches_full, cert
+
+
+# H100 SXM's float64 rate without tensor cores (the certifier's arithmetic).
+F64_FLOPS = 34e12
+
+
+def phase_certify_kernel(torch, ck, res, c, A, b, fallback, gpu):
+    """The certifier kernel (``csrc/certify_le.cu``) on phase 8's solve: its
+    bases and statuses, with one failure of each kind planted
+    (``tests/test_torch_certify_kernel.py::_plant``), against its twin on
+    the card: flags equal, ``x`` and ``fun`` within 1e-12 (1 + |twin|),
+    every planted instance uncertified and no other but the ``fallback``
+    the solve left to the host.  Then both timed (median of 20, CUDA
+    events).  Returns the kernels line's numbers."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from test_torch_certify_kernel import _plant
+
+    from simplex_tpu_torch.models.batched import _CERT_TOL
+
+    B, m, n = A.shape
+    res = dataclasses.replace(res, basis=np.array(res.basis, np.int32),
+                              status=np.array(res.status, np.int32))
+    b, planted = _plant(res, c, A, b, np.ones(B, bool))
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(a, device=dev) for a in
+            (A, b, c, np.ones(B, bool), res.basis, res.status)] + [_CERT_TOL]
+    ck.LAUNCHES_CERT = 0
+    ok, x, fun = ck.certify_le_(*args)
+    rok, rx, rfun = ck.certify_le_ref(*args)
+    torch.cuda.synchronize()
+    check(ck.LAUNCHES_CERT == 1, f"certify_le_ launched "
+          f"{ck.LAUNCHES_CERT}x, not once")
+    check(torch.equal(ok, rok), f"certified differs from the twin on "
+          f"{int((ok != rok).sum())} instances")
+    check(not bool(ok[planted].any())
+          and int(ok.sum()) >= B - len(planted) - fallback,
+          f"planted {planted}: the kernel certified {int(ok.sum())} of {B}")
+    err = 0.0
+    for got, want in ((x, rx), (fun, rfun)):
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              "NaN patterns differ from the twin")
+        got, want = got.nan_to_num(), want.nan_to_num()
+        diff = (got - want).abs()
+        err = max(err, float(diff.max()))
+        check(bool((diff <= 1e-12 * (1 + want.abs())).all()),
+              f"x or fun beyond 1e-12 (1 + |twin|) of the twin: {err!r}")
+    nbytes = sum(t.numel() * t.element_size() for t in args[:4]) \
+        + B * m * 4 + B * 4 + ok.numel() + x.numel() * 8 + fun.numel() * 8
+    flops = B * (2 * m ** 3 / 3 + 4 * m * m + 2 * m * n)
+    t = {"launches": ck.LAUNCHES_CERT, "err": err,
+         "one": _time_ms(lambda: ck.certify_le_(*args)),
+         "twin": _time_ms(lambda: ck.certify_le_ref(*args))}
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
+    t["bound"], t["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                 else (t_ops, "operations"))
+    log(f"[certify] certify_le_ on phase 8's {B} x ({m}x{n}) solve on {gpu}, "
+        f"failures planted in instances {planted}: flags equal to the twin, "
+        f"{int(ok.sum())} certified, x and fun within {err!r} of it; kernel "
+        f"{t['one']!r} ms, twin {t['twin']!r} ms; bound {t['bound']!r} ms "
+        f"({t['bound_by']}: {nbytes / 1e6!r} MB, {flops / 1e9!r} GFLOP "
+        f"float64) = {t['bound'] / t['one']!r} of the kernel's time")
+    return t
 
 
 def _batch_run(torch, bk, solver, args, kw):
@@ -2636,6 +2715,28 @@ def _chrome_overlap(path, kernel_key):
     return len(kernels), len(side), len(overlapping)
 
 
+def _host_certified(pt, cfg, c, A, b, ops, maximize, ub=None):
+    """``solve_arrays`` certified as the stream certifies: the solve, then
+    the host copy ``certify_uniform_result`` (``solve_arrays`` itself
+    certifies an all-<= batch on the card)."""
+    from simplex_tpu_torch.models.batched import certify_uniform_result
+
+    res = pt.BatchedSimplexSolver(dataclasses.replace(cfg, certify=False)) \
+        .solve_arrays(c, A, b, ops, maximize=maximize, ub=ub)
+    return certify_uniform_result(res, c, A, b, ops, maximize, ub=ub)
+
+
+def _kkt_close(a, b):
+    """Equal NaN patterns, and within 1e-12 (1 + |a|) elsewhere: two float64
+    KKT solves of one basis, the card's from one LU of it, the host's from
+    two."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        return False
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
+    return bool(np.all(np.abs(a - b) <= 1e-12 * (1.0 + np.abs(a))))
+
+
 def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
                          n_chunks=4, m=30, n=50, Bm=16384):
     """Phase 19: ``models/batched.solve_arrays_stream`` at
@@ -2684,11 +2785,19 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
     serial = gen_s[0] + stages.seconds() + uploads.calls[0][1] \
         - uploads.calls[0][0] + runs.seconds() + cert_s
     c, A, b, ops = next(stream_chunks(1, chunk, m, n, 300))
-    ref = pt.BatchedSimplexSolver(cfg).solve_arrays(c, A, b, ops,
-                                                    maximize=True)
+    ref = _host_certified(pt, cfg, c, A, b, ops, True)
     for f in ("status", "pivots", "z", "x", "certified"):
         check(np.array_equal(getattr(ref, f), getattr(outs[0], f)),
               f"stream chunk 0: {f} differs from solve_arrays")
+    card = pt.BatchedSimplexSolver(cfg).solve_arrays(c, A, b, ops,
+                                                     maximize=True)
+    for f in ("status", "pivots", "certified"):
+        check(np.array_equal(getattr(card, f), getattr(outs[0], f)),
+              f"stream chunk 0: {f} differs from solve_arrays on the card")
+    for f in ("z", "x"):
+        check(_kkt_close(getattr(card, f), getattr(outs[0], f)),
+              f"stream chunk 0: {f} beyond 1e-12 of solve_arrays certified "
+              f"on the card")
     log(f"[stream-exact] {n_chunks} chunks of {chunk} x ({m}x{n}), seeds "
         f"300+k, certified, on {gpu}: all optimal and certified, "
         f"escalated {sum(r.n_escalated for r in outs)}; wall {wall!r} s = "
@@ -2703,7 +2812,9 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
         f"{wall / serial!r}; certify "
         f"of chunk k overlapped the solve of chunk k+1 on the host clock "
         f"for every k; K2 launches {bk.LAUNCHES}; chunk 0 equals "
-        f"solve_arrays in status, pivots, x and z bit for bit")
+        f"solve_arrays certified on the host in status, pivots, x and z "
+        f"bit for bit, and solve_arrays certified on the card in status, "
+        f"pivots and certified, x and z within 1e-12 (1 + |z|)")
 
     path = os.path.join(tmpdir, "stream_trace.json")
     with profile(activities=[ProfilerActivity.CPU,
@@ -2728,9 +2839,8 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
     wall_m = time.perf_counter() - t1
     k2, k3 = bk.LAUNCHES, bk.LAUNCHES_K3
     check(k2 > 0 and k3 > 0, f"mixed stream: K2 {k2}, K3 {k3} launches")
-    solver = pt.BatchedSimplexSolver(cfg)
-    refs = [solver.solve_arrays(*bt[:4], maximize=True,
-                                ub=bt[4] if len(bt) > 4 else None)
+    refs = [_host_certified(pt, cfg, *bt[:4], True,
+                            ub=bt[4] if len(bt) > 4 else None)
             for bt in (classic, bounded)]
     for k, res in enumerate(outs):
         ref = refs[k % 2]
@@ -2740,8 +2850,8 @@ def phase_batched_stream(torch, pt, bk, gpu, tmpdir, chunk=65536,
         check((res.at_upper is not None) == (k % 2 == 1),
               f"mixed stream batch {k}: at_upper")
     log(f"[stream-mixed] 4 x {Bm} x (30x50): phase 8's batch and phase "
-        f"11's bounded batch in turns, on {gpu}: each equal to "
-        f"solve_arrays on its batch; wall {wall_m!r} s; K2 launches {k2}, "
+        f"11's bounded batch in turns, on {gpu}: each equal bit for bit "
+        f"to solve_arrays certified on the host on its batch; wall {wall_m!r} s; K2 launches {k2}, "
         f"K3 launches {k3}")
     return k2, k3
 
@@ -3725,6 +3835,7 @@ def main():
     from simplex_tpu_torch import cli
     from simplex_tpu_torch.models.batched import compile_batch_uniform
     from simplex_tpu_torch.ops import batched_kernel as bk
+    from simplex_tpu_torch.ops import certify_kernel as ck
     from simplex_tpu_torch.ops import pivot_kernel
     from simplex_tpu_torch.ops import stream_kernel as sk
     from simplex_tpu_torch.runtime import kernels
@@ -3790,7 +3901,7 @@ def main():
     k2 = k2_times[16384]
 
     # 8. the batched path at full width
-    k2_launches = phase_batched(torch, pt, bk, gpu)
+    k2_launches, cert = phase_batched(torch, pt, bk, ck, gpu)
     _graph_stats("phase 8")
 
     # 9. K3 against its twin, 10. timed
@@ -3952,6 +4063,18 @@ def main():
         "bound_ms": k4["bound"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["add_"],
+    }, {
+        "name": "Cert certify_le",
+        "route": "cuda",
+        "source": "simplex_tpu_torch/csrc/certify_le.cu",
+        "replaces": "simplex_tpu/models/certify.py:309",
+        "launches": cert["launches"],
+        "max_abs_err": cert["err"],
+        "ms": cert["one"],
+        "plain_ms": cert["twin"],
+        "bound_ms": cert["bound"],
+        "bound_by": cert["bound_by"],
+        "library_ms": None,
     }]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

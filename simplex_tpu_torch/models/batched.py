@@ -20,8 +20,11 @@ as in the JAX package:
   solved as ``solve_arrays`` solves it, batch k+1 staged and batch k
   certified while the device works.
 
-Every verdict is f64-certified on the host and untrusted ones are re-solved
-exactly (``models/certify.py``) when ``config.certify`` is on.
+Every verdict is f64-certified and untrusted ones are re-solved exactly on
+the host (``models/certify.py``) when ``config.certify`` is on; a CUDA
+all-``<=`` batch without bounds is certified on the card
+(:func:`_certify_on_device`), and only what the card does not certify goes
+to the host.
 
 The numpy helpers (``_round_up``, ``BatchResult``, ``CompiledBatch``,
 ``_build_ub_ext``, ``compile_batch_uniform``, ``_batch_tol``,
@@ -31,6 +34,7 @@ JAX module as they are (``tests/test_torch_core.py`` holds them to it).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from typing import Optional, Sequence
 
@@ -49,7 +53,7 @@ from ..core.problem import (
     split_free_variables,
 )
 from ..ops import batched as batched_ops
-from ..utils.profiling import recorded, trace_span
+from ..utils.profiling import count, recorded, trace_span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -311,20 +315,30 @@ def compile_batch_on_device(c, A, b, ops, maximize,
     JAX function: it is left out when every row is ``<=`` after the sign
     normalization, which halves the tableau's width.
     """
+    tensors, maximize, with_art = _upload(c, A, b, ops, maximize, dtype,
+                                          device)
+    return _assemble_on_device(tensors, maximize, with_art, row_pad,
+                               col_pad, align_total, ub)
+
+
+def _upload(c, A, b, ops, maximize, dtype, device):
+    """:func:`_batch_inputs`'s arrays uploaded to ``device``: returns
+    ``(tensors, maximize, with_art)``."""
     arrays, maximize, with_art = _batch_inputs(c, A, b, ops, maximize,
                                                dtype)
     dev = torch.device(device)
-    return _assemble_on_device(
-        [torch.as_tensor(a, device=dev) for a in arrays], maximize,
-        with_art, row_pad, col_pad, align_total, ub)
+    return ([torch.as_tensor(a, device=dev) for a in arrays], maximize,
+            with_art)
 
 
-def _assemble_on_device(tensors, maximize, with_art: bool, row_pad: int,
-                        col_pad: int, align_total: bool,
-                        ub) -> CompiledBatch:
+def _assemble_on_device(tensors, maximize, with_art: bool,
+                        row_pad: int = 8, col_pad: int = 128,
+                        align_total: bool = True,
+                        ub=None) -> CompiledBatch:
     """The device half of :func:`compile_batch_on_device`: ``tensors`` are
     :func:`_batch_inputs`'s arrays on the device (uploaded there or staged
-    by ``runtime/staging.py``)."""
+    by ``runtime/staging.py``).  Its layout defaults are the solves'
+    (``solve_arrays``, ``solve_arrays_stream``)."""
     c_t, A_t, b_t, ops_t, max_t = tensors
     dev, dt = A_t.device, A_t.dtype
     B, m, n = A_t.shape
@@ -583,6 +597,87 @@ def certify_uniform_result(res: BatchResult, c, A, b, ops, maximize,
     return res
 
 
+# The float64 KKT check's tolerance: the host copy's, which the card's check
+# shares.
+_CERT_TOL = inspect.signature(certify_uniform_result).parameters["tol"].default
+
+
+def _certifies_on_device(A_t, b, ops, ub) -> bool:
+    """Whether :func:`_certify_on_device` takes a batch: its tensors on a
+    CUDA device, every row ``<=`` with ``b >= 0``, no upper bounds, and
+    rows within the kernel's limit."""
+    from ..ops.certify_kernel import MAX_ROWS
+
+    return (A_t.device.type == "cuda" and ub is None
+            and 1 <= A_t.shape[1] <= MAX_ROWS and A_t.shape[2] >= 1
+            and bool(np.all(np.asarray(ops) == OP_LE))
+            and not bool(np.any(np.asarray(b) < 0)))
+
+
+def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
+                       tensors) -> BatchResult:
+    """:func:`certify_uniform_result` of an all-``<=`` batch with ``b >= 0``
+    and no bounds, on the solve's device, in place.
+
+    ``tensors`` are :func:`_upload`'s (the raw ``c``, ``A``, ``b`` in the
+    solve's dtype, the ops and ``maximize``).  The float64 KKT check of
+    every instance runs in one kernel (``ops/certify_kernel.py``), which
+    reads ``A``, ``b`` and ``c`` as the user gave them: an upload is reused
+    where it holds the exact values, else the array goes up again in
+    float64.  The instances it does not certify, every non-optimal claim
+    among them, go as one sub-batch to the host copy
+    :func:`certify_uniform_result`, which checks them again and escalates
+    them as it does a whole batch; the solve record counts them as
+    ``certify_fallback``.
+    """
+    from ..ops.certify_kernel import certify_le_
+
+    c_t, A_t, b_t, _, max_t = tensors
+    dev = A_t.device
+    with trace_span("certify.device"):
+        exact = []
+        for arr, t in ((A, A_t), (b, b_t), (c, c_t)):
+            arr = np.asarray(arr)
+            if t.dtype == torch.float64 or arr.dtype == np.float32:
+                exact.append(t)
+            else:
+                exact.append(torch.as_tensor(np.asarray(arr, np.float64),
+                                             device=dev))
+        basis = torch.as_tensor(np.ascontiguousarray(res.basis, np.int32),
+                                device=dev)
+        status = torch.as_tensor(np.asarray(res.status, np.int32),
+                                 device=dev)
+        ok_t, x_t, fun_t = certify_le_(exact[0], exact[1], exact[2], max_t,
+                                       basis, status, _CERT_TOL)
+        certified = ok_t.cpu().numpy()
+        x = x_t.cpu().numpy()
+        fun = fun_t.cpu().numpy()
+    solved = dataclasses.replace(res)
+    res.status = np.array(res.status)
+    res.x = x
+    res.fun = fun
+    res.z = np.where(maximize, -fun, fun) + 0.0
+    res.certified = certified
+    res.escalated = np.zeros_like(certified)
+    bad = np.flatnonzero(~certified)
+    count("certify_fallback", len(bad))
+    if len(bad):
+        ops = np.asarray(ops)
+        sub = certify_uniform_result(
+            BatchResult(
+                x=solved.x[bad], z=solved.z[bad], fun=solved.fun[bad],
+                status=solved.status[bad], success=solved.success[bad],
+                nit=solved.nit,
+                pivots=None if solved.pivots is None else solved.pivots[bad],
+                basis=solved.basis[bad]),
+            np.asarray(c)[bad], np.asarray(A)[bad], np.asarray(b)[bad],
+            ops if ops.ndim == 1 else ops[bad], maximize[bad])
+        for name in ("status", "x", "fun", "z", "certified", "escalated"):
+            getattr(res, name)[bad] = getattr(sub, name)
+    res.success = res.status == STATUS_OPTIMAL
+    return res
+
+
 class BatchedSimplexSolver:
     """Batched two-phase simplex over a shared padded shape, on
     ``config.device``."""
@@ -599,7 +694,8 @@ class BatchedSimplexSolver:
         f64-KKT-checked against the exact data and untrusted ones are
         re-solved by the exact host engine.  Each call is one solve record
         (``utils/profiling.py``) with the spans ``batched.assemble``,
-        ``batched.run`` and ``batched.certify``.
+        ``batched.run`` and ``batched.certify`` (with ``certify.device``
+        inside where the card certifies, :func:`_certify_on_device`).
 
         ``ub`` ((n,) or (B, n), entries in [0, +inf]): native upper bounds,
         solved by the bounded solver (kernel K3) at zero row cost; general
@@ -607,17 +703,22 @@ class BatchedSimplexSolver:
         (see :func:`solve_lp_sweep`).
         """
         with trace_span("batched.assemble"):
-            cb = compile_batch_on_device(
+            # compile_batch_on_device, keeping the raw uploads for the
+            # certifier.
+            tensors, maxi, with_art = _upload(
                 c, A, b, ops, maximize,
-                dtype=np.dtype(dtype or self.config.dtype), ub=ub,
-                device=self.config.device,
-            )
+                np.dtype(dtype or self.config.dtype), self.config.device)
+            cb = _assemble_on_device(tensors, maxi, with_art, ub=ub)
         with trace_span("batched.run"):
             res = self._solve_compiled(cb)
         if self.config.certify:
             with trace_span("batched.certify"):
-                res = certify_uniform_result(res, c, A, b, ops, maximize,
-                                             ub=ub)
+                if _certifies_on_device(tensors[1], b, ops, ub):
+                    res = _certify_on_device(res, c, A, b, ops, maxi,
+                                             tensors)
+                else:
+                    res = certify_uniform_result(res, c, A, b, ops,
+                                                 maximize, ub=ub)
         return res
 
     def _solve_compiled(self, cb: CompiledBatch) -> BatchResult:
@@ -871,8 +972,7 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
             staged, maxi, with_art, raw = nxt
             ub = raw[4] if len(raw) > 4 else None
             cb = _assemble_on_device(staged.tensors(), maxi, with_art,
-                                     row_pad=8, col_pad=128,
-                                     align_total=True, ub=ub)
+                                     ub=ub)
             # The NEXT batch's buffers now; its uploads once this batch's
             # first chunk is enqueued.
             try:

@@ -113,6 +113,11 @@ def _k3(real):
             _P, _P, real, _I32, _I32, _P, _P, _P, _P, _P, _P]
 
 
+def _cert():
+    return [_P, _P, _P, _I32, _I32, _P, _P, _I64, _P, _I64, _I64, _I64,
+            ctypes.c_double, _P, _P, _P, _P]
+
+
 # Every C entry point of csrc/*.cu and its argument types, in order; each
 # returns a CUDA error code (int).  tests/test_torch_kernel_abi.py holds
 # this table to the sources' signatures.
@@ -129,6 +134,10 @@ ARGTYPES = {
     # x, out, numel, stream
     "k4_stream_copy_f32": [_P, _P, _I64, _P],
     "k4_stream_copy_f64": [_P, _P, _I64, _P],
+    # csrc/certify_le.cu: A, b, c, b_f64, c_f64, maximize, basis, ldb,
+    # status, B, m, n, tol, certified, x, fun, stream
+    "certify_le_f32": _cert(),
+    "certify_le_f64": _cert(),
     # csrc/graph_steps.cu: n, parts, flags, counts, limits, exec_out,
     # stream; exec, stream; graph, n_types, counts; stream_out
     "graph_chain_build": [_I64, _P, _P, _P, _P, _P, _P],
