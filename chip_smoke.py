@@ -66,7 +66,19 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     K3 launch count of that run, its stages on the host clock and one run
     under ``torch.profiler``; then a 1024 x (30x50) bounded batch with
     mixed rows through the two-phase loop and a ``solve_lp_sweep`` of 256
-    LPs with general bounds, every verdict against HiGHS;
+    LPs with general bounds, every verdict against HiGHS; (b) the path of
+    the benchmark's ``mknapcb9.relax`` cell: ``solve_arrays`` on a 16384 x
+    (30x500) draw of its traffic (``lpbench/traffic/mknap.py``, ``ub`` = 1,
+    float32, certified), K3 launched exactly once an iteration plus the
+    float64 finish's launches, every answer optimal, certified and in its
+    bounds, ``at_upper`` at the bound, the flips counted, 512 answers
+    against the plain bounded reference (``lpbench/reference/bounded.py``);
+    then K3 against its twin, 0 ulps, on that draw's float32 tableau (16384
+    x 32 x 640) and on a float64 one at the finish's chunk (4096 x 32 x
+    640), whose tiles lie above the 64 KB stage, so every instance streams:
+    eight steps from a state 200 K3 steps in, flips and pivots among them;
+    one launch of each timed against its twin and its bound (both shapes in
+    the kernels line);
 12. K4 (``csrc/stream_copy.cu``) against its plain PyTorch twin on the
     card, bit for bit: in place and out of place, f32 and f64, at 10241^2,
     10304 x 10368, 16384 x 32 x 128 and 257 x 300, and on a view one
@@ -885,19 +897,8 @@ def phase_k2_timing(torch, bk, sk, compile_batch_uniform, gpu):
             basis.copy_(basis0)
             w.fill_(1.0)
 
-        def timed(step, reps=20, warmup=3):
-            times = []
-            for k in range(warmup + reps):
-                reset()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                step()
-                end.record()
-                end.synchronize()
-                if k >= warmup:
-                    times.append(start.elapsed_time(end))
-            return statistics.median(times)
+        def timed(step):
+            return _one_launch_ms(torch, step, reset)
 
         args = (T, basis, cm, cm, phase, status, bland, w)
         k_ms = timed(lambda: bk.fused_pivot_step_(*args, devex=True))
@@ -1169,7 +1170,9 @@ def _batch_run(torch, bk, solver, args, kw):
         bk.LAUNCHES = bk.LAUNCHES_K3 = 0
         with _Timed(tops, "_solve_loop", torch, keep=True) as loop:
             r = solver.solve_arrays(*args, **kw)
-        T, basis, at_up, status, iters, pivots = loop.kept[-1][2]
+        # The solve's own loop: a bounded float32 batch runs the float64
+        # finish's loops after it.
+        T, basis, at_up, status, iters, pivots = loop.kept[0][2][:6]
         out = {"T": T, "basis": basis, "status": status, "iters": iters,
                "pivots": pivots, "x": r.x, "z": r.z,
                "certified": r.certified, "K2": bk.LAUNCHES,
@@ -1229,13 +1232,53 @@ class BoundedState:
         return other
 
 
+def _k3_against_twin(torch, bk, k, kw, where, steps=8):
+    """``steps`` successive steps of K3 and of its twin from the state
+    ``k`` (a :class:`BoundedState`, which K3 advances): outputs, flags and
+    the bound state equal, T, w and ub_B 0 ulps from the twin (equal up to
+    the sign of a zero), instances that do not move bit-identical.  Returns
+    the worst absolute difference, the most ulps, and the flips, pivots
+    and entries from an upper bound among the steps."""
+    err, max_ulp, flips, pivots, from_up = 0.0, 0, 0, 0, 0
+    for step in range(steps):
+        t, before = k.clone(), k.clone()
+        out_k = bk.fused_pivot_step_bounded_(*k.args(), **kw)
+        out_t = bk.fused_pivot_step_bounded_ref(*t.args(), **kw)
+        torch.cuda.synchronize()
+        at = f"{where} step {step}"
+        for name, a, b in zip(("s", "r", "optimal", "unbounded",
+                               "moving"), out_k[6:], out_t[6:]):
+            check(torch.equal(a, b), f"K3 {name} differs, {at}")
+        for name in ("basis", "at_upper", "is_art_row"):
+            check(torch.equal(getattr(k, name), getattr(t, name)),
+                  f"K3 {name} differs, {at}")
+        moving = out_k[10]
+        for name in BoundedState.STATE:
+            check(torch.equal(getattr(k, name)[~moving],
+                              getattr(before, name)[~moving]),
+                  f"K3 changed {name} of a still instance, {at}")
+        ulp = max(int(_ulps(getattr(k, x), getattr(t, x)).max())
+                  for x in ("T", "w", "ub_B"))
+        check(ulp == 0, f"K3 T/w/ub_B {ulp} ulps from the twin, {at}")
+        max_ulp = max(max_ulp, ulp)
+        for x in ("T", "w", "ub_B"):
+            d = (getattr(k, x) - getattr(t, x)).abs()
+            err = max(err, float(torch.nan_to_num(d).max()))
+        flip = moving & (k.basis == before.basis).all(1)
+        s = out_k[6].long()[:, None]
+        up = before.at_upper.gather(1, s)[:, 0]
+        flips += int(flip.sum())
+        pivots += int((moving & ~flip).sum())
+        from_up += int((moving & ~flip & up).sum())
+        del t, before
+    return err, max_ulp, flips, pivots, from_up
+
+
 def phase_k3(torch, bk, compile_batch_uniform):
     """K3 against its twin: three twin steps put columns at their upper
-    bounds, then eight successive steps from the same state; outputs, flags
-    and the bound state equal, T, w and ub_B 0 ulps from the twin (equal up
-    to the sign of a zero), instances that do not move bit-identical; at
-    least one flip and one entry from an upper bound over all cases.
-    Returns the worst absolute difference."""
+    bounds, then eight successive steps from the same state
+    (:func:`_k3_against_twin`); at least one flip and one entry from an
+    upper bound over all cases.  Returns the worst absolute difference."""
     dev = torch.device("cuda")
     # Phase 6's cases and the general (two-phase) driver's shape.
     cases = STEP_CASES[:3] + [(1024, 30, 50, True, np.float32, (8, 128))] \
@@ -1256,38 +1299,9 @@ def phase_k3(torch, bk, compile_batch_uniform):
             kw = dict(tol=1e-6, devex=devex, with_art=mixed)
             for _ in range(3):
                 bk.fused_pivot_step_bounded_ref(*k.args(), **kw)
-            err, max_ulp, flips, from_up = 0.0, 0, 0, 0
             where = f"{_where(B, M, N, dtype)} devex={devex}"
-            for step in range(8):
-                t, before = k.clone(), k.clone()
-                out_k = bk.fused_pivot_step_bounded_(*k.args(), **kw)
-                out_t = bk.fused_pivot_step_bounded_ref(*t.args(), **kw)
-                torch.cuda.synchronize()
-                at = f"{where} step {step}"
-                for name, a, b in zip(("s", "r", "optimal", "unbounded",
-                                       "moving"), out_k[6:], out_t[6:]):
-                    check(torch.equal(a, b), f"K3 {name} differs, {at}")
-                for name in ("basis", "at_upper", "is_art_row"):
-                    check(torch.equal(getattr(k, name), getattr(t, name)),
-                          f"K3 {name} differs, {at}")
-                moving = out_k[10]
-                for name in BoundedState.STATE:
-                    check(torch.equal(getattr(k, name)[~moving],
-                                      getattr(before, name)[~moving]),
-                          f"K3 changed {name} of a still instance, {at}")
-                ulp = max(int(_ulps(getattr(k, x), getattr(t, x)).max())
-                          for x in ("T", "w", "ub_B"))
-                check(ulp == 0,
-                      f"K3 T/w/ub_B {ulp} ulps from the twin, {at}")
-                max_ulp = max(max_ulp, ulp)
-                for x in ("T", "w", "ub_B"):
-                    d = (getattr(k, x) - getattr(t, x)).abs()
-                    err = max(err, float(torch.nan_to_num(d).max()))
-                flip = moving & (k.basis == before.basis).all(1)
-                s = out_k[6].long()[:, None]
-                up = before.at_upper.gather(1, s)[:, 0]
-                flips += int(flip.sum())
-                from_up += int((moving & ~flip & up).sum())
+            err, max_ulp, flips, _, from_up = _k3_against_twin(
+                torch, bk, k, kw, where)
             log(f"[k3] {where}: 8 steps match the twin (s, r, flags, basis, "
                 f"at_upper, is_art_row equal; T, w and ub_B {max_ulp} ulps "
                 f"from it), {flips} flips, {from_up} entries from an upper "
@@ -1324,19 +1338,8 @@ def phase_k3_timing(torch, bk, sk, compile_batch_uniform, gpu):
             for name in BoundedState.STATE:
                 getattr(st, name).copy_(getattr(first, name))
 
-        def timed(step, reps=20, warmup=3):
-            times = []
-            for k in range(warmup + reps):
-                reset()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                step()
-                end.record()
-                end.synchronize()
-                if k >= warmup:
-                    times.append(start.elapsed_time(end))
-            return statistics.median(times)
+        def timed(step):
+            return _one_launch_ms(torch, step, reset)
 
         kw = dict(devex=True, with_art=False)
         k_ms = timed(lambda: bk.fused_pivot_step_bounded_(*st.args(), **kw))
@@ -1518,6 +1521,7 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
     """The bounded path through its entry points; returns the K3 launches
     of the full-width solve."""
     from simplex_tpu_torch.models import batched as tmb
+    from simplex_tpu_torch.utils import profiling
 
     solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
     c, A, b, ops, ub = bench_bounded_batch(B)
@@ -1531,6 +1535,9 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
     res = solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
     wall = time.perf_counter() - t0
     k3_launches, k2_launches, nit_full = bk.LAUNCHES_K3, bk.LAUNCHES, res.nit
+    # The float64 finish launches K3 after the loop (all-<= batches).
+    finish = profiling.recent("batched.solve_arrays")[-1]["counts"].get(
+        "finish_launches", 0)
 
     check(res.status.shape == (B,) and bool(np.all(res.status == 0)),
           f"{int(np.sum(res.status != 0))} of {B} bounded instances not "
@@ -1605,8 +1612,9 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
     check(out["K3"] == k3_launches and out["K2"] == 0,
           f"K3 launches {out['K3']} in the graph and eager runs, "
           f"{k3_launches} in the timed run")
-    _loop_exit("phase 11", f"K3 launches for {nit_full} iterations",
-               k3_launches, nit_full,
+    _loop_exit("phase 11", f"K3 launches (less the float64 finish's "
+               f"{finish}) for {nit_full} iterations",
+               k3_launches - finish, nit_full,
                {k: v["_solve_loop"] for k, v in times.items()}, gpu,
                exact=True)
     _loop_exit("phase 11 mixed", f"K3 launches for {mixed_nit} iterations "
@@ -1645,6 +1653,186 @@ def phase_bounded(torch, pt, bk, gpu, B=16384):
         f"{wall!r} s, K2 launches {bk.LAUNCHES}, K3 launches "
         f"{bk.LAUNCHES_K3}")
     return k3_launches
+
+
+# The batched-step skeleton stages an instance's tile in shared memory only
+# up to this many bytes (kStageMaxBytes, csrc/batched_step_common.cuh);
+# a larger tile decides from global memory and streams its update.
+STAGE_MAX_BYTES = 64 * 1024
+# The mknapcb9.relax cell's seed for phase 11 (b)'s draw (a large one, as
+# the benchmark's are).
+MKNAP_SEED = 2654435761
+# K3 steps that take phase 11 (b)'s tableaus from their first state to one
+# with pivots and bound flips both under way.
+MKNAP_ADVANCE = 200
+
+
+def mknap_batch(B, m=30, n=500, seed=MKNAP_SEED):
+    """Item 0 of the ``mknapcb9.relax`` cell's traffic
+    (``lpbench/traffic/mknap.py``, Chu & Beasley's law) for ``seed``, cut
+    to ``B`` LPs of ``m`` x ``n``."""
+    from lpbench.traffic import mknap
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "lpbench", "traffic", "mknap_relax.json")
+    with open(path, encoding="utf-8") as f:
+        traffic = json.load(f)
+    traffic.update(batch=B, m=m, n=n, dtype="float32")
+    return mknap.item(traffic, seed, 0)
+
+
+def _one_launch_ms(torch, step, reset, reps=20, warmup=3):
+    """Median ms of one ``step()`` between two CUDA events, ``reset()``
+    restoring its first state before each, outside the events."""
+    times = []
+    for k in range(warmup + reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        if k >= warmup:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_mknap(torch, pt, bk, compile_batch_uniform, gpu, B=16384, m=30,
+                n=500):
+    """Phase 11 (b): the ``mknapcb9.relax`` cell's path.  ``solve_arrays``
+    on a draw of its traffic (``ub`` = 1, all ``<=``, float32, certified):
+    K3 launched once an iteration of the loop plus the float64 finish's
+    launches, every answer optimal and certified, ``x`` in its bounds and
+    ``at_upper`` equal to ``x`` at its bound, flips counted, 512 answers
+    against the plain bounded reference (``lpbench/reference/bounded.py``).
+    Then K3 against its twin (:func:`_k3_against_twin`) on the draw's
+    float32 tableau (B, 32, 640) and on a float64 one at the finish's chunk
+    (4096, 32, 640), both above the stage bound, so every instance streams:
+    from the first state advanced ``MKNAP_ADVANCE`` K3 steps, eight steps,
+    flips and pivots among them; then one launch of each timed from that
+    state, with its bound.  Returns {dtype name: the kernels line's
+    numbers}."""
+    from lpbench.reference import bounded as reference
+    from simplex_tpu_torch.models import batched as tmb
+    from simplex_tpu_torch.ops import batched as tops
+    from simplex_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    item = mknap_batch(B, m, n)
+    c, A, b, ub = item["c"], item["A"], item["b"], item["ub"]
+    ops = np.full(m, -1)
+    cfg = pt.SolverConfig(device="cuda", dtype="float32", certify=True)
+    solver = pt.BatchedSimplexSolver(cfg)
+
+    bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
+    wall = time.perf_counter() - t0
+    k3_launches, k2_launches = bk.LAUNCHES_K3, bk.LAUNCHES
+    counts = profiling.recent("batched.solve_arrays")[-1]["counts"]
+    finish = counts.get("finish_launches", 0)
+    check(k2_launches == 0, f"the MKP solve launched K2 {k2_launches}x")
+    check(k3_launches == res.nit + finish,
+          f"the MKP solve launched K3 {k3_launches}x: {res.nit} iterations "
+          f"and {finish} in the float64 finish")
+    check(bool(np.all(res.status == 0)),
+          f"{int(np.sum(res.status != 0))} of {B} MKP LPs not optimal")
+    check(bool(np.all(res.certified)), "not every MKP LP certified")
+    check(bool(np.all(res.x >= -1e-6)) and bool(np.all(res.x <= 1 + 1e-5)),
+          "an MKP x outside [0, 1]")
+    up = res.at_upper[:, :n]
+    check(bool(up.any()) and bool(np.all(np.abs(res.x[up] - 1.0) <= 1e-9)),
+          "at_upper names a variable that is not at its bound")
+    flips = int(res.flips.sum())
+    check(flips > 0 and bool(np.all(res.flips <= res.pivots)),
+          f"flips {flips}, not counted among the steps")
+    check(counts.get("bound_flips") == flips,
+          f"the record counts {counts.get('bound_flips')} flips, the loop "
+          f"{flips}")
+    sample = np.random.default_rng(1).choice(B, size=min(512, B),
+                                             replace=False)
+    ref = reference.solve(c[sample], A[sample], b[sample], ub[sample],
+                          device="cuda")
+    check(bool(np.all(ref["status"] == 0)), "the reference not optimal")
+    gap = np.abs(res.z[sample] - ref["z"]) / (1.0 + np.abs(ref["z"]))
+    check(float(gap.max()) <= 1e-6,
+          f"MKP z {float(gap.max())!r} from the reference (relative)")
+    log(f"[mknap] {B} x ({m}x{n}), ub = 1, float32 on {gpu}: all status 0 "
+        f"and certified, escalated={res.n_escalated} (at_upper reset "
+        f"{counts.get('at_upper_reset', 0)}), wall {wall!r} s (graphs "
+        f"captured in it), steps mean {float(res.pivots.mean())!r} max "
+        f"{int(res.pivots.max())}, of them flips {flips} "
+        f"({flips / max(int(res.pivots.sum()), 1)!r}), nit {res.nit}; K3 "
+        f"launches {k3_launches} = {res.nit} + the finish's {finish} "
+        f"({counts.get('finish_steps', 0)} finish steps); z within "
+        f"{float(gap.max())!r} (relative) of the plain reference on "
+        f"{len(sample)} sampled")
+    del res, solver, ref
+
+    out = {}
+    for dtype, Bk in ((np.float32, B), (np.float64, min(tops._FINISH_CHUNK,
+                                                         B))):
+        name = np.dtype(dtype).name
+        cb = compile_batch_uniform(c[:Bk], A[:Bk], b[:Bk], ops, maximize=True,
+                                   dtype=dtype, ub=ub[:Bk])
+        status = torch.full((Bk,), -1, dtype=torch.int32, device=dev)
+        bland = torch.arange(Bk, device=dev) % 2 == 0
+        k = BoundedState(torch, cb, status, bland)
+        del cb
+        _, M, N = k.T.shape
+        itemsize = np.dtype(dtype).itemsize
+        tile = M * N * itemsize
+        check(tile > STAGE_MAX_BYTES,
+              f"the {name} {M}x{N} tile ({tile} B) is staged, not streamed")
+        kw = dict(tol=tmb._batch_tol(cfg, dtype), devex=True, with_art=False)
+        for _ in range(MKNAP_ADVANCE):
+            bk.fused_pivot_step_bounded_(*k.args(), **kw)
+        first = k.clone()
+        where = f"B={Bk} {M}x{N} {name} ({tile} B a tile, streamed)"
+        err, max_ulp, flips, pivots, from_up = _k3_against_twin(
+            torch, bk, k, kw, where)
+        check(flips > 0 and pivots > 0,
+              f"K3 on the MKP {name} tableau: {flips} flips, {pivots} "
+              f"pivots; both must happen")
+        st = first.clone()
+
+        def reset():
+            for x in BoundedState.STATE:
+                getattr(st, x).copy_(getattr(first, x))
+
+        k_ms = _one_launch_ms(
+            torch, lambda: bk.fused_pivot_step_bounded_(*st.args(), **kw),
+            reset)
+        p_ms = _one_launch_ms(
+            torch, lambda: bk.fused_pivot_step_bounded_ref(*st.args(), **kw),
+            reset)
+        reset()
+        elig = _eligible(torch, st.T, st.cm1, st.cm2, st.phase, st.at_upper)
+        res = bk.fused_pivot_step_bounded_(*st.args(), **kw)
+        moving = res[10]
+        flip = moving & (st.basis == first.basis).all(1)
+        pivot = moving & ~flip
+        state = _state_bytes(M, N, itemsize, pivot, flip, res[8], elig, bland,
+                             devex=True, bounded=True)
+        b_ms, b_by = _bound_ms(_step_bytes(M, N, itemsize, pivot, flip,
+                                           state),
+                               2 * M * N * int(pivot.sum()))
+        log(f"[mknap-k3] {where} Devex on {gpu}, after {MKNAP_ADVANCE} "
+            f"steps: 8 steps match the twin (s, r, flags, basis, at_upper "
+            f"equal; T, w and ub_B {max_ulp} ulps from it), {pivots} pivots, "
+            f"{flips} flips, {from_up} entries from an upper bound, "
+            f"max_abs_err={err!r}; one launch {k_ms!r} ms, twin {p_ms!r} ms, "
+            f"bound {b_ms!r} ms ({b_by}; the timed step {int(pivot.sum())} "
+            f"pivots, {int(flip.sum())} flips) = {b_ms / k_ms!r} of K3's")
+        out[name] = dict(shape=(Bk, M, N), err=err, one=k_ms, twin=p_ms,
+                         bound=b_ms, bound_by=b_by,
+                         launches=(k3_launches - finish if dtype == np.float32
+                                   else finish))
+        del k, first, st, res
+    torch.cuda.empty_cache()
+    return out
 
 
 K4_SHAPES = [(10241, 10241),      # the pivot-rate tableau, (size+1)^2
@@ -2716,11 +2904,16 @@ def _chrome_overlap(path, kernel_key):
 
 
 def _host_certified(pt, cfg, c, A, b, ops, maximize, ub=None):
-    """``solve_arrays`` certified as the stream certifies: the solve, then
-    the host copy ``certify_uniform_result`` (``solve_arrays`` itself
-    certifies an all-<= batch on the card)."""
+    """``solve_arrays`` certified as the stream certifies, on the host: a
+    bounded batch is ``solve_arrays`` itself; any other is solved with
+    certification off, then certified by the host copy
+    ``certify_uniform_result`` (``solve_arrays`` certifies an all-<= batch
+    without bounds on the card)."""
     from simplex_tpu_torch.models.batched import certify_uniform_result
 
+    if ub is not None:
+        return pt.BatchedSimplexSolver(cfg).solve_arrays(
+            c, A, b, ops, maximize=maximize, ub=ub)
     res = pt.BatchedSimplexSolver(dataclasses.replace(cfg, certify=False)) \
         .solve_arrays(c, A, b, ops, maximize=maximize, ub=ub)
     return certify_uniform_result(res, c, A, b, ops, maximize, ub=ub)
@@ -3910,8 +4103,10 @@ def main():
     k3_times = phase_k3_timing(torch, bk, sk, compile_batch_uniform, gpu)
     k3 = k3_times[16384]
 
-    # 11. the bounded path at full width
+    # 11. the bounded path at full width; (b) the mknapcb9.relax cell's
+    # path, K3 streaming its tiles in float32 and in the float64 finish
     k3_launches = phase_bounded(torch, pt, bk, gpu)
+    k3_mknap = phase_mknap(torch, pt, bk, compile_batch_uniform, gpu)
     _graph_stats("phase 11")
 
     # 12. K4 against its twin, 13. timed, the pivot-rate path, and every
@@ -4051,7 +4246,20 @@ def main():
         "bound_ms": k3["bound"],
         "bound_by": k3["bound_by"],
         "library_ms": None,
-    }, {
+    }] + [{
+        "name": "K3 fused_pivot_step_bounded {}x{}x{} {}, streamed".format(
+            *t["shape"], dt),
+        "route": "cuda",
+        "source": "simplex_tpu_torch/csrc/fused_pivot_step_bounded.cu",
+        "replaces": "simplex_tpu/ops/pallas_batched.py:501",
+        "launches": t["launches"],
+        "max_abs_err": t["err"],
+        "ms": t["one"],
+        "plain_ms": t["twin"],
+        "bound_ms": t["bound"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+    } for dt, t in k3_mknap.items()] + [{
         "name": "K4 stream_copy",
         "route": "cuda",
         "source": "simplex_tpu_torch/csrc/stream_copy.cu",

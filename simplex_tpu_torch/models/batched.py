@@ -24,7 +24,9 @@ Every verdict is f64-certified and untrusted ones are re-solved exactly on
 the host (``models/certify.py``) when ``config.certify`` is on; a CUDA
 all-``<=`` batch without bounds is certified on the card
 (:func:`_certify_on_device`), and only what the card does not certify goes
-to the host.
+to the host.  A float32 all-``<=`` batch with bounds goes on in float64
+from where its loop stopped before it is certified
+(``ops/batched.py::finish_bounded_f64``).
 
 The numpy helpers (``_round_up``, ``BatchResult``, ``CompiledBatch``,
 ``_build_ub_ext``, ``compile_batch_uniform``, ``_batch_tol``,
@@ -90,6 +92,15 @@ class BatchResult:
     @property
     def n_escalated(self) -> int:
         return 0 if self.escalated is None else int(np.sum(self.escalated))
+
+
+@dataclasses.dataclass
+class LoopResult(BatchResult):
+    """A :class:`BatchResult` of the port's device loop (``_run_batch``),
+    with each instance's bound flips: ``pivots`` counts pivots and flips,
+    so ``pivots - flips`` is the pivots (flips are zero without ``ub``)."""
+
+    flips: Optional[np.ndarray] = None   # (B,) int32
 
 
 @dataclasses.dataclass
@@ -417,12 +428,18 @@ def _assemble_on_device(tensors, maximize, with_art: bool,
 
 def _run_batch(cb: CompiledBatch, config: SolverConfig,
                max_iters: Optional[int] = None,
-               _on_first_chunk=None) -> BatchResult:
+               _on_first_chunk=None) -> LoopResult:
     """Solve a compiled batch on ``config.device``: the classic solver, or
     the bounded one when ``cb.ub_ext`` is set.  ``cb`` may hold numpy
     arrays (either package's) or tensors; the tableau's own dtype is the
     working dtype.  ``_on_first_chunk`` (private): called once, right after
-    the solve loop's first chunk has been enqueued."""
+    the solve loop's first chunk has been enqueued.  A bounded solve adds
+    its bound flips to the open solve record's count ``bound_flips``; a
+    bounded float32 ``phase2_only`` solve whose verdicts will be certified
+    takes its optimal instances on in float64
+    (``ops/batched.py::finish_bounded_f64``, span ``batched.finish``; its
+    steps and K3 launches counted as ``finish_steps`` and
+    ``finish_launches``)."""
     t0 = time.perf_counter()
     dtype = np.dtype(str(cb.T0.dtype).replace("torch.", ""))
     _, torch_dtype = resolve_dtype(dtype.name)
@@ -454,20 +471,40 @@ def _run_batch(cb: CompiledBatch, config: SolverConfig,
     ub = st.pop("ub", None)
     # The solvers' common loop (solve_tableau_batch / _bounded), with the
     # private callback.
-    T, basis, at_up, status, iters, pivots = batched_ops._solve_loop(
+    T, basis, at_up, status, iters, pivots, flips = batched_ops._solve_loop(
         **st, ub=ub, feas_tol=1e-5, **kw, _on_first_chunk=_on_first_chunk)
     if ub is not None:
-        x, z_min = batched_ops.extract_solution_batch_bounded(
-            T, basis, at_up, ub, cb.n_vars)
+        if phase2_only and config.certify and torch_dtype == torch.float32:
+            # Certified verdicts: the optimal instances go on in float64
+            # first, so that float32 rounding does not send them to the
+            # exact host engine.
+            with trace_span("batched.finish"):
+                x, z_min, status, basis, at_up, steps, launches = \
+                    batched_ops.finish_bounded_f64(
+                        T, st["T0"], st["basis0"], st["col_mask_p2"],
+                        st["obj_row_p2"], ub, basis, at_up, status,
+                        cb.n_vars, tol=min(_batch_tol(config, np.float64),
+                                           _FINISH_TOL),
+                        **{k: kw[k] for k in ("max_iters", "bland_after",
+                                              "refactor_every", "backend",
+                                              "devex")})
+                count("finish_steps", int(steps.sum()))
+                count("finish_launches", launches)
+        else:
+            x, z_min = batched_ops.extract_solution_batch_bounded(
+                T, basis, at_up, ub, cb.n_vars)
         at_upper = at_up.cpu().numpy()
     else:
         x, z_min = batched_ops.extract_solution_batch(T, basis, cb.n_vars)
     x = np.maximum(x.cpu().numpy().astype(np.float64), 0.0)
     fun = z_min.cpu().numpy().astype(np.float64)
     status = status.cpu().numpy()
+    flips = flips.cpu().numpy()
+    if ub is not None:
+        count("bound_flips", int(flips.sum()))
     z = np.where(cb.maximize, -fun, fun) + 0.0
     ok = status == STATUS_OPTIMAL
-    return BatchResult(
+    return LoopResult(
         x=np.where(ok[:, None], x, np.nan),
         z=np.where(ok, z, np.nan),
         fun=np.where(ok, fun, np.nan),
@@ -478,7 +515,16 @@ def _run_batch(cb: CompiledBatch, config: SolverConfig,
         solve_time=time.perf_counter() - t0,
         basis=basis.cpu().numpy(),
         at_upper=at_upper,
+        flips=flips,
     )
+
+
+# The float64 finish's tolerance.  Its ratio test passes over the rows whose
+# entry is at most the tolerance, and a step moves those by up to the
+# tolerance times the step, unseen under the clipped right-hand side: a
+# slack entering at 1e-6 moved a basic x_j of an mknapcb9 relaxation 2.3e-4
+# beyond its bound of 1.
+_FINISH_TOL = 1e-9
 
 
 def _batch_tol(config: SolverConfig, dtype) -> float:
@@ -678,6 +724,39 @@ def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
     return res
 
 
+# How close to its finite upper bound an escalated instance's variable must
+# sit to be marked at it: the exact host engine's rounding (its
+# equilibration scales and unscales x), far inside lpbench's 1e-9.
+_AT_UPPER_RTOL = 1e-12
+
+
+def _reset_at_upper(res: BatchResult, ub) -> BatchResult:
+    """``at_upper`` of every escalated instance of a bounded, certified
+    result, in place, from its ``x`` and ``ub``: the host certifiers
+    (``certify_uniform_result``, copied as it is) rewrite an escalated
+    instance's ``x``, status and objective from the exact host engine and
+    leave the loop's ``at_upper`` as it was.  A structural column is at its
+    upper bound where its bound is finite and ``x`` sits on it; every other
+    column is not.  The solve record counts the instances reset as
+    ``at_upper_reset``."""
+    if res.at_upper is None or res.escalated is None:
+        return res
+    esc = np.flatnonzero(res.escalated)
+    count("at_upper_reset", len(esc))
+    if len(esc):
+        x = np.asarray(res.x, np.float64)[esc]
+        n = x.shape[1]
+        u = np.broadcast_to(np.asarray(ub, np.float64),
+                            (len(res.x), n))[esc]
+        fin = np.isfinite(u)
+        u = np.where(fin, u, 0.0)
+        at = np.zeros((len(esc), res.at_upper.shape[1]), bool)
+        at[:, :n] = fin & (np.abs(x - u) <= _AT_UPPER_RTOL * (1.0 + u))
+        res.at_upper = np.array(res.at_upper)
+        res.at_upper[esc] = at
+    return res
+
+
 class BatchedSimplexSolver:
     """Batched two-phase simplex over a shared padded shape, on
     ``config.device``."""
@@ -695,7 +774,9 @@ class BatchedSimplexSolver:
         re-solved by the exact host engine.  Each call is one solve record
         (``utils/profiling.py``) with the spans ``batched.assemble``,
         ``batched.run`` and ``batched.certify`` (with ``certify.device``
-        inside where the card certifies, :func:`_certify_on_device`).
+        inside where the card certifies, :func:`_certify_on_device`).  An
+        escalated instance of a bounded batch gets ``at_upper`` anew from
+        its ``x`` (:func:`_reset_at_upper`).
 
         ``ub`` ((n,) or (B, n), entries in [0, +inf]): native upper bounds,
         solved by the bounded solver (kernel K3) at zero row cost; general
@@ -717,8 +798,9 @@ class BatchedSimplexSolver:
                     res = _certify_on_device(res, c, A, b, ops, maxi,
                                              tensors)
                 else:
-                    res = certify_uniform_result(res, c, A, b, ops,
-                                                 maximize, ub=ub)
+                    res = _reset_at_upper(
+                        certify_uniform_result(res, c, A, b, ops, maximize,
+                                               ub=ub), ub)
         return res
 
     def _solve_compiled(self, cb: CompiledBatch) -> BatchResult:
@@ -960,7 +1042,11 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
         return (staging.stage(arrays, dev, side, defer=True), maxi,
                 with_art, batch)
 
-    certify = recorded("batched.certify")(certify_uniform_result)
+    @recorded("batched.certify")
+    def certify(res, c, A, b, ops, maxi, ub):
+        return _reset_at_upper(
+            certify_uniform_result(res, c, A, b, ops, maxi, ub=ub), ub)
+
     it = iter(batches)
     try:
         nxt = stage(next(it))

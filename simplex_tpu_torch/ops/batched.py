@@ -331,23 +331,63 @@ def _refine_solution_bounded_b(T, basis, basis0, T0_rows, raw_obj, at_upper,
     return T
 
 
-def _refactor_bounded_b(T, basis, at_upper, ub, T0_rows, raw_obj, active):
-    """Bounded exact refactorization: ``B^{-1} A`` and the reduced costs as
-    in :func:`_refactor_b`, the RHS column solved against ``b_eff`` and the
-    objective cell with the at-upper terms.  Inactive, singular and
-    non-finite instances keep their tableau.  Returns a new ``T``."""
+def _bounded_tableau(basis, at_upper, ub, T0_rows, raw_obj):
+    """The bounded tableau at ``(basis, at_upper)`` computed from ``T0``:
+    ``B^{-1} A`` and the reduced costs as in :func:`_refactor_b`, the RHS
+    column solved against ``b_eff`` and the objective cell with the
+    at-upper terms.  The basic columns are set as a pivot leaves them,
+    exact unit columns with zero reduced costs: the solve's rounding there
+    (about 1e-4 in float32 beside costs near 1e3) would otherwise price a
+    basic column in, and K3 would flip or pivot on it.  Returns ``(T,
+    ok)``, ``ok`` false where the basis is singular or the tableau not
+    finite."""
     Bmat = _basis_columns(T0_rows, basis)
     u_vec, z_up = _at_upper_terms(at_upper, ub, raw_obj)
     b_eff = T0_rows[:, :, -1] - torch.bmm(T0_rows[:, :, :-1],
                                           u_vec[:, :, None])[:, :, 0]
     rhs_all = torch.cat([T0_rows[:, :, :-1], b_eff[:, :, None]], dim=2)
     T_rows, info = torch.linalg.solve_ex(Bmat, rhs_all)
-    basis_costs = raw_obj.gather(1, basis.long())
+    B, R, _ = T_rows.shape
+    bl = basis.long()
+    eye = torch.eye(R, dtype=T_rows.dtype, device=T_rows.device)
+    T_rows = T_rows.scatter(2, bl[:, None, :].expand(B, R, R),
+                            eye.expand(B, R, R))
+    basis_costs = raw_obj.gather(1, bl)
     obj = raw_obj - torch.bmm(basis_costs[:, None, :], T_rows)[:, 0]
+    obj = obj.scatter(1, bl, 0.0)
     obj[:, -1] = -((basis_costs * T_rows[:, :, -1]).sum(-1) + z_up)
     T_new = torch.cat([T_rows, obj[:, None, :]], dim=1)
-    ok = active & (info == 0) & torch.all(torch.isfinite(T_new), dim=(1, 2))
-    return torch.where(ok[:, None, None], T_new, T)
+    return T_new, (info == 0) & torch.all(torch.isfinite(T_new), dim=(1, 2))
+
+
+def _refactor_bounded_b(T, basis, at_upper, ub, T0_rows, raw_obj, active):
+    """Bounded exact refactorization (:func:`_bounded_tableau`).  Inactive,
+    singular and non-finite instances keep their tableau.  Returns a new
+    ``T``."""
+    T_new, ok = _bounded_tableau(basis, at_upper, ub, T0_rows, raw_obj)
+    return torch.where((active & ok)[:, None, None], T_new, T)
+
+
+# How far a warm start's basic values may lie outside their bounds, relative
+# to 1 + the bound (a basic slack: to the instance's 1 + max |b|).
+_WARM_SLACK = 1e-7
+
+
+def _within_bounds(T, basis, ub, b_scale):
+    """Per instance, whether the basic values of the bounded tableau ``T``
+    lie within their bounds, ``[0, ub]``, up to ``_WARM_SLACK``.  The loop
+    clips its right-hand side into the bounds at every step, so a basis
+    that float32 rounding left slightly infeasible looks feasible to it;
+    solved afresh in float64, its basic values show the infeasibility, and
+    a loop resumed from it would carry that to the answer."""
+    xB = T[:, :-1, -1]
+    ub_B = ub.gather(1, basis.long())
+    fin = torch.isfinite(ub_B)
+    scale = torch.where(fin, 1.0 + torch.where(fin, ub_B, 0.0),
+                        b_scale[:, None])
+    out = (xB < -_WARM_SLACK * scale) \
+        | (fin & (xB > ub_B + _WARM_SLACK * scale))
+    return ~out.any(dim=1)
 
 
 def _clip_b(x, ub):
@@ -502,21 +542,26 @@ def _step_bounded(kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
     update ``T``, ``basis``, ``bst`` and the padded (B, N) weights in place;
     the unfused step returns new ``T`` and ``basis``, stores new tensors in
     ``bst`` and writes ``w`` in place.  Returns ``(T, basis, optimal,
-    unbounded, moving)``."""
+    unbounded, moving, flipped)``, ``flipped`` marking the moving
+    instances whose step was a bound flip."""
     if kind != "unfused":
         step = (fused_pivot_step_bounded_ if kind == "kernel"
                 else fused_pivot_step_bounded_ref)
         out = step(T, basis, bst["at_upper"], cm1f, cm2f, phase, status,
                    use_bland, w, ub, bst["ub_B"], bst["is_art_row"],
                    art_mask_ext, tol=tol, devex=devex, with_art=with_art)
-        return T, basis, out[8], out[9], out[10]
-    out = _bounded_step_b(T, basis, bst["at_upper"], col_mask, phase == 1,
-                          status == RUNNING, use_bland, w[:, :-1], ub,
-                          bst["ub_B"], bst["is_art_row"], art_mask_ext, tol,
-                          devex, with_art)
-    T, basis, bst["at_upper"], w[:, :-1], bst["ub_B"], bst["is_art_row"] = \
-        out[:6]
-    return T, basis, out[8], out[9], out[10]
+    else:
+        out = _bounded_step_b(T, basis, bst["at_upper"], col_mask,
+                              phase == 1, status == RUNNING, use_bland,
+                              w[:, :-1], ub, bst["ub_B"], bst["is_art_row"],
+                              art_mask_ext, tol, devex, with_art)
+        T, basis, bst["at_upper"], w[:, :-1], bst["ub_B"], \
+            bst["is_art_row"] = out[:6]
+    s, r, moving = out[6], out[7], out[10]
+    # A pivot leaves s basic in row r; a flip changes no basis entry, and s
+    # was nonbasic.
+    flipped = moving & (basis.gather(1, r.long()[:, None])[:, 0] != s)
+    return T, basis, out[8], out[9], moving, flipped
 
 
 def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
@@ -541,7 +586,7 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
     (the caller asserts ``need_p1`` is all False) runs the loop without
     phase flips; see the module docstring for the chunked loop.
     """
-    T, basis, _, status, iters, pivots = _solve_loop(
+    T, basis, _, status, iters, pivots, _ = _solve_loop(
         T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
         need_p1, None, tol, max_iters, bland_after, feas_tol, refactor_every,
         backend, devex, phase2_only)
@@ -576,7 +621,8 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
     """
     return _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1,
                        obj_row_p2, need_p1, ub, tol, max_iters, bland_after,
-                       feas_tol, refactor_every, backend, devex, phase2_only)
+                       feas_tol, refactor_every, backend, devex,
+                       phase2_only)[:6]
 
 
 def _batch_chunk(st, cs, static, n_steps: int):
@@ -605,10 +651,12 @@ def _batch_chunk(st, cs, static, n_steps: int):
         bst = None
         if bounded:
             bst = {k: st[k] for k in ("at_upper", "ub_B", "is_art_row")}
-            T, basis, optimal, unbounded, active = _step_bounded(
+            T, basis, optimal, unbounded, active, flipped = _step_bounded(
                 kind, T, basis, bst, cm1f, cm2f, col_mask, phase, status,
                 use_bland, w, cs["ub"], art_mask_ext, tol, devex,
                 not phase2_only)
+            # Stored with the carried bound state below.
+            bst["flips"] = st["flips"] + flipped.to(i32)
         else:
             T, basis, optimal, unbounded, active = _step(
                 kind, T, basis, cm1f, cm2f, col_mask, phase, status,
@@ -650,13 +698,22 @@ def _batch_chunk(st, cs, static, n_steps: int):
 def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
                 need_p1, ub, tol, max_iters, bland_after, feas_tol,
                 refactor_every, backend, devex, phase2_only,
-                _on_first_chunk=None):
+                _on_first_chunk=None, start=None):
     """The chunked loop of both solvers; ``ub`` None is the classic one.
     Each chunk is :func:`_batch_chunk`, one CUDA graph on the card.
     ``_on_first_chunk`` (private) is called once, right after the first
     chunk has been enqueued: the batched stream issues the next batch's
-    uploads there.  Returns ``(T, basis, at_upper, status, iters,
-    pivots)``, ``at_upper`` None for the classic solver."""
+    uploads there.  ``start`` (bounded ``phase2_only`` loops): ``(basis,
+    at_upper, resume)``, a warm start; the instances marked in ``resume``
+    go on from that basis and at-upper set, their tableau rebuilt from
+    ``T0`` (:func:`_bounded_tableau`), and every other instance stops at
+    once with the iteration limit.  A resumed instance whose basis is
+    singular, or whose basic values, solved afresh, leave their bounds
+    (:func:`_within_bounds`), starts over from ``basis0`` instead.
+    Returns ``(T, basis, at_upper, status, iters, pivots, flips)``,
+    ``at_upper`` None for the classic solver; ``flips`` (B,) int32 counts
+    each instance's bound flips, which ``pivots`` includes (zeros for the
+    classic solver)."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown batched backend {backend!r}; expected "
                          f"one of {sorted(_BACKENDS)}")
@@ -674,6 +731,7 @@ def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
         "status": torch.full((Bsz,), RUNNING, dtype=i32, device=dev),
         "iters": torch.zeros((), dtype=torch.int64, device=dev),
         "pivots": torch.zeros((Bsz,), dtype=i32, device=dev),
+        "flips": torch.zeros((Bsz,), dtype=i32, device=dev),
         "best_obj": torch.full((Bsz,), math.inf, dtype=dt, device=dev),
         "no_imp": torch.zeros((Bsz,), dtype=i32, device=dev),
         "w": torch.ones((Bsz, N), dtype=dt, device=dev),  # RHS lane 1
@@ -698,6 +756,18 @@ def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
             ub_B=ub.gather(1, bl).contiguous(),
             is_art_row=art_mask_ext.gather(1, bl).contiguous())
         consts["ub"] = ub
+    if start is not None:
+        basis_w, at_up_w, resume = start
+        T_w, ok = _bounded_tableau(basis_w, at_up_w, ub, T0_rows,
+                                   obj_row_p2)
+        warm = ok & _within_bounds(T_w, basis_w, ub, consts["b_scale"])
+        basis_w = torch.where(warm[:, None], basis_w.to(i32), state["basis"])
+        state.update(
+            T=torch.where(warm[:, None, None], T_w, T0),
+            basis=basis_w, at_upper=at_up_w & warm[:, None],
+            status=torch.where(resume, RUNNING,
+                               STATUS_ITERATION_LIMIT).to(i32),
+            ub_B=ub.gather(1, basis_w.long()).contiguous())
     static = (kind, bounded, bool(phase2_only), float(tol), int(bland_after),
               float(feas_tol), bool(devex))
 
@@ -754,7 +824,7 @@ def _solve_loop(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
     status = torch.where(state["status"] == RUNNING, STATUS_ITERATION_LIMIT,
                          state["status"])
     return (T, basis, state["at_upper"] if bounded else None, status,
-            iters_h, state["pivots"])
+            iters_h, state["pivots"], state["flips"])
 
 
 def _flip_to_phase2(st, bounded, ub, art_mask_ext, col_mask_p2, obj_row_p2,
@@ -810,3 +880,80 @@ def extract_solution_batch_bounded(T, basis, at_upper, ub, n_vars: int):
     ub_n = ub[:, :n_vars]
     ub_safe = torch.where(torch.isfinite(ub_n), ub_n, 0.0)
     return torch.where(at_upper[:, :n_vars], ub_safe, x), z_min
+
+
+# Instances the float64 finish resumes at once: a (4096, 32, 640) float64
+# tableau is 0.67 GB, and every full chunk's CUDA graph is one cache entry.
+_FINISH_CHUNK = 4096
+
+
+def finish_bounded_f64(T, T0, basis0, col_mask_p2, obj_row_p2, ub, basis,
+                       at_upper, status, n_vars: int, *, tol, max_iters,
+                       bland_after, refactor_every, backend, devex):
+    """The answers of a float32 bounded ``phase2_only`` solve, its optimal
+    instances taken on in float64 from where the float32 loop stopped.
+
+    A float32 tableau of data a thousand times larger than 1 carries
+    reduced costs whose rounding reaches the certifier's tolerance
+    (``1e-7 (1 + max |c|)``), so a basis the float32 loop takes as optimal
+    can fail the float64 check, and the instance then goes to the exact
+    host engine.  Here each optimal instance's tableau is rebuilt in
+    float64 from ``T0`` at its final basis and at-upper set, and the
+    bounded loop (:func:`_solve_loop` with ``start``, K3 in float64) takes
+    whatever steps remain, ``_FINISH_CHUNK`` instances at a time; most take
+    none.  One whose final basis is infeasible in float64 (the float32
+    loop's clipped right-hand side hid it) starts over from the initial
+    basis.  The float64 loop clips its right-hand side too, so an instance
+    whose answer, solved afresh from ``T0`` at the finish's final basis,
+    still leaves its bounds (:func:`_within_bounds`) is returned with the
+    iteration-limit status, as is one the finish leaves without a
+    verdict: the certifier sends both to the exact host engine, and no
+    answer keeps a basic value beyond its bound.  ``tol`` is the float64
+    loop's: its ratio test passes over the rows whose entry is at most
+    ``tol``, and a step of ``θ`` moves those by up to ``tol · θ`` unseen.
+
+    ``T``, ``basis``, ``at_upper`` and ``status`` are the float32 solve's
+    outputs, the rest its inputs.  Returns ``(x, z_min, status, basis,
+    at_upper, steps, launches)``: ``x`` (B, n_vars) and ``z_min`` in
+    float64 and the finish's own steps (pivots and flips) an instance,
+    where the finish ends with a verdict; an instance not optimal in
+    float32 keeps the float32 solve's answer and counts no step.
+    ``launches`` is the loop iterations of every chunk, one K3 launch
+    each."""
+    dt = torch.float64
+    x, z_min = extract_solution_batch_bounded(T, basis, at_upper, ub, n_vars)
+    x, z_min = x.to(dt), z_min.to(dt)
+    status, basis, at_upper = status.clone(), basis.clone(), at_upper.clone()
+    steps = torch.zeros_like(status)
+    launches = 0
+    for s in range(0, T.shape[0], _FINISH_CHUNK):
+        e = min(s + _FINISH_CHUNK, T.shape[0])
+        obj = obj_row_p2[s:e].to(dt)
+        cm = col_mask_p2[s:e]
+        ub_c = ub[s:e].to(dt)
+        T0_c = T0[s:e].to(dt)
+        T_f, b_f, au_f, st_f, iters, piv_f, _ = _solve_loop(
+            T0_c, basis0[s:e], cm, cm, obj, obj,
+            torch.zeros_like(cm[:, 0]), ub_c, tol, max_iters, bland_after,
+            1e-5, refactor_every, backend, devex, True,
+            start=(basis[s:e], at_upper[s:e],
+                   status[s:e] == STATUS_OPTIMAL))
+        x_f, z_f = extract_solution_batch_bounded(T_f, b_f, au_f, ub_c,
+                                                  n_vars)
+        T_x, ok = _bounded_tableau(b_f, au_f, ub_c, T0_c[:, :-1, :], obj)
+        inside = ok & _within_bounds(
+            T_x, b_f, ub_c, 1.0 + T0_c[:, :-1, -1].abs().amax(1))
+        done = (st_f == STATUS_UNBOUNDED) | ((st_f == STATUS_OPTIMAL)
+                                            & inside)
+        d1 = done[:, None]
+        x[s:e] = torch.where(d1, x_f, x[s:e])
+        z_min[s:e] = torch.where(done, z_f, z_min[s:e])
+        resumed = status[s:e] == STATUS_OPTIMAL
+        status[s:e] = torch.where(
+            done, st_f, torch.where(resumed, STATUS_ITERATION_LIMIT,
+                                    status[s:e]))
+        basis[s:e] = torch.where(d1, b_f, basis[s:e])
+        at_upper[s:e] = torch.where(d1, au_f, at_upper[s:e])
+        steps[s:e] = torch.where(done, piv_f, 0)
+        launches += iters
+    return x, z_min, status, basis, at_upper, steps, launches

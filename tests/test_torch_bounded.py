@@ -32,6 +32,7 @@ import simplex_tpu_torch as pt
 from simplex_tpu_torch.models import batched as tmb
 from simplex_tpu_torch.ops import batched as tops
 from simplex_tpu_torch.ops import batched_kernel as bk
+from simplex_tpu_torch.utils import profiling
 
 # name -> (random_batch arguments, (seed, lo, hi) of ub, loop keywords)
 LOOP_CASES = {
@@ -392,10 +393,15 @@ def test_cuda_bounded_solve_agrees_with_the_cpu_path():
         gpu = pt.BatchedSimplexSolver(pt.SolverConfig()).solve_arrays(
             *args, maximize=maximize, ub=ub)
         launches = bk.LAUNCHES_K3 - before
+        # The all-<= batch goes on in float64 after its loop (one K3 launch
+        # a step of the finish's loop too); the mixed one does not.
+        finish = profiling.recent("batched.solve_arrays")[-1]["counts"] \
+            .get("finish_launches", 0)
+        assert (finish > 0) == (ub is SOLVE_CASES["30x50"][2])
         cpu = pt.BatchedSimplexSolver(pt.SolverConfig(device=CPU)) \
             .solve_arrays(*args, maximize=maximize, ub=ub)
         np.testing.assert_array_equal(gpu.status, cpu.status)
         for i in np.flatnonzero(cpu.status == 0):
             assert z_close(cpu.z[i], gpu.z[i])
         # One K3 launch a step of the loop, none after its last.
-        assert launches == gpu.nit >= int(gpu.pivots.max()) > 0
+        assert launches - finish == gpu.nit >= int(gpu.pivots.max()) > 0

@@ -399,12 +399,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(name):
 
 
 # As tests/test_torch_fused_step.py::GPU_CASES: the main path's shapes,
-# tiles above the 64 KB staging budget (streamed), and unpadded tableaus
-# whose M*N*sizeof(T) is not a multiple of 16 bytes; mixed batches run the
+# tiles above the 64 KB staging budget (streamed; 30 x 500 is the
+# mknapcb9.relax cell's 32 x 640 tile), and unpadded tableaus whose
+# M*N*sizeof(T) is not a multiple of 16 bytes; mixed batches run the
 # artificial-exit rows.
 GPU_CASES = [((16, 9, 13), np.float32, True, (8, 128)),
              ((16, 9, 13), np.float64, True, (8, 128)),
              ((64, 30, 50), np.float32, False, (8, 128)),
+             ((8, 30, 500), np.float32, False, (8, 128)),
              ((8, 60, 100), np.float32, True, (8, 128)),
              ((8, 60, 100), np.float64, True, (8, 128)),
              ((4, 100, 150), np.float32, True, (8, 128)),

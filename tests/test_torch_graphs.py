@@ -36,7 +36,9 @@ from simplex_tpu_torch.runtime import counters, graphs, staging
 from simplex_tpu_torch.utils import profiling
 
 # Each case of _torch_loop_cases.py in float64 on the CPU, as the loops
-# computed it before their chunks were factored into bodies.
+# computed it before their chunks were factored into bodies; the bounded
+# cases' T as it is since the bounded refactor sets the basic columns
+# exactly (within 3.6e-15 of the earlier T, every other output unchanged).
 GOLDEN = {
     'batched_le': {
         'T': 'float64[12, 16, 128]:563459ea6380820d',
@@ -60,7 +62,7 @@ GOLDEN = {
         'status': 'int32[12]:c6bb82fa5848ee9d',
     },
     'bounded_le': {
-        'T': 'float64[12, 16, 128]:6eee31d57cb9c70d',
+        'T': 'float64[12, 16, 128]:347c77dc87c23ec6',
         'at_upper': 'bool[12, 127]:54abd4be9837da6f',
         'basis': 'int32[12, 15]:d2571d4e5d71f378',
         'iters': 'int64[]:5fd1b79ebdef9619',
@@ -68,7 +70,7 @@ GOLDEN = {
         'status': 'int32[12]:17b0761f87b081d5',
     },
     'bounded_mixed': {
-        'T': 'float64[12, 16, 128]:a7ac15d9d4586e3e',
+        'T': 'float64[12, 16, 128]:003e3bb6f8af5706',
         'at_upper': 'bool[12, 127]:23b6e150ff35fa8e',
         'basis': 'int32[12, 15]:16629ea10128bbdb',
         'iters': 'int64[]:e48d939f60d90eb5',
@@ -76,7 +78,7 @@ GOLDEN = {
         'status': 'int32[12]:27571db2bb62a14d',
     },
     'bounded_mixed_unfused': {
-        'T': 'float64[12, 16, 128]:a7ac15d9d4586e3e',
+        'T': 'float64[12, 16, 128]:003e3bb6f8af5706',
         'at_upper': 'bool[12, 127]:23b6e150ff35fa8e',
         'basis': 'int32[12, 15]:16629ea10128bbdb',
         'iters': 'int64[]:e48d939f60d90eb5',
