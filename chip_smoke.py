@@ -70,10 +70,15 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     the benchmark's ``mknapcb9.relax`` cell: ``solve_arrays`` on a 16384 x
     (30x500) draw of its traffic (``lpbench/traffic/mknap.py``, ``ub`` = 1,
     float32, certified), K3 launched exactly once an iteration plus the
-    float64 finish's launches, every answer optimal, certified and in its
-    bounds, ``at_upper`` at the bound, the flips counted, 512 answers
-    against the plain bounded reference (``lpbench/reference/bounded.py``);
-    then K3 against its twin, 0 ulps, on that draw's float32 tableau (16384
+    float64 finish's launches and the bounded certifier
+    (``csrc/certify_bounded.cu``) once, every answer optimal, certified and
+    in its bounds, ``at_upper`` at the bound, the flips counted, 512
+    answers against the plain bounded reference
+    (``lpbench/reference/bounded.py``); the bounded certifier on that
+    solve's claims, failures planted, against its twin (flags equal, ``x``
+    and ``fun`` within 1e-12), timed chained and after an L2 flush beside
+    its bound and the twin (in the kernels line); then K3 against its
+    twin, 0 ulps, on that draw's float32 tableau (16384
     x 32 x 640) and on a float64 one at the finish's chunk (4096 x 32 x
     640), whose tiles lie above the 64 KB stage, so every instance streams:
     eight steps from a state 200 K3 steps in, flips and pivots among them;
@@ -1698,21 +1703,23 @@ def _one_launch_ms(torch, step, reset, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def phase_mknap(torch, pt, bk, compile_batch_uniform, gpu, B=16384, m=30,
-                n=500):
+def phase_mknap(torch, pt, bk, ck, compile_batch_uniform, gpu, B=16384,
+                m=30, n=500):
     """Phase 11 (b): the ``mknapcb9.relax`` cell's path.  ``solve_arrays``
     on a draw of its traffic (``ub`` = 1, all ``<=``, float32, certified):
     K3 launched once an iteration of the loop plus the float64 finish's
-    launches, every answer optimal and certified, ``x`` in its bounds and
-    ``at_upper`` equal to ``x`` at its bound, flips counted, 512 answers
-    against the plain bounded reference (``lpbench/reference/bounded.py``).
+    launches, the bounded certifier once, every answer optimal and
+    certified, ``x`` in its bounds and ``at_upper`` equal to ``x`` at its
+    bound, flips counted, 512 answers against the plain bounded reference
+    (``lpbench/reference/bounded.py``); the bounded certifier on the
+    solve's claims (:func:`phase_certify_bounded`).
     Then K3 against its twin (:func:`_k3_against_twin`) on the draw's
     float32 tableau (B, 32, 640) and on a float64 one at the finish's chunk
     (4096, 32, 640), both above the stage bound, so every instance streams:
     from the first state advanced ``MKNAP_ADVANCE`` K3 steps, eight steps,
     flips and pivots among them; then one launch of each timed from that
     state, with its bound.  Returns {dtype name: the kernels line's
-    numbers}."""
+    numbers} and :func:`phase_certify_bounded`'s dict."""
     from lpbench.reference import bounded as reference
     from simplex_tpu_torch.models import batched as tmb
     from simplex_tpu_torch.ops import batched as tops
@@ -1726,6 +1733,7 @@ def phase_mknap(torch, pt, bk, compile_batch_uniform, gpu, B=16384, m=30,
     solver = pt.BatchedSimplexSolver(cfg)
 
     bk.LAUNCHES = bk.LAUNCHES_K3 = 0
+    ck.LAUNCHES_CERT = ck.LAUNCHES_CERT_BOUNDED = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
@@ -1733,7 +1741,14 @@ def phase_mknap(torch, pt, bk, compile_batch_uniform, gpu, B=16384, m=30,
     k3_launches, k2_launches = bk.LAUNCHES_K3, bk.LAUNCHES
     counts = profiling.recent("batched.solve_arrays")[-1]["counts"]
     finish = counts.get("finish_launches", 0)
+    fallback = counts.get("certify_fallback")
     check(k2_launches == 0, f"the MKP solve launched K2 {k2_launches}x")
+    check(ck.LAUNCHES_CERT_BOUNDED == 1 and ck.LAUNCHES_CERT == 0,
+          f"the MKP solve launched the bounded certifier "
+          f"{ck.LAUNCHES_CERT_BOUNDED}x and the unbounded one "
+          f"{ck.LAUNCHES_CERT}x, not once and never")
+    check(fallback is not None, "the MKP solve record holds no "
+          "certify_fallback count")
     check(k3_launches == res.nit + finish,
           f"the MKP solve launched K3 {k3_launches}x: {res.nit} iterations "
           f"and {finish} in the float64 finish")
@@ -1766,9 +1781,11 @@ def phase_mknap(torch, pt, bk, compile_batch_uniform, gpu, B=16384, m=30,
         f"{int(res.pivots.max())}, of them flips {flips} "
         f"({flips / max(int(res.pivots.sum()), 1)!r}), nit {res.nit}; K3 "
         f"launches {k3_launches} = {res.nit} + the finish's {finish} "
-        f"({counts.get('finish_steps', 0)} finish steps); z within "
-        f"{float(gap.max())!r} (relative) of the plain reference on "
-        f"{len(sample)} sampled")
+        f"({counts.get('finish_steps', 0)} finish steps); bounded "
+        f"certifier launches 1 ({fallback} instances left to the host "
+        f"copy); z within {float(gap.max())!r} (relative) of the plain "
+        f"reference on {len(sample)} sampled")
+    cert = phase_certify_bounded(torch, ck, res, c, A, b, ub, fallback, gpu)
     del res, solver, ref
 
     out = {}
@@ -1832,7 +1849,105 @@ def phase_mknap(torch, pt, bk, compile_batch_uniform, gpu, B=16384, m=30,
                                    else finish))
         del k, first, st, res
     torch.cuda.empty_cache()
-    return out
+    return out, cert
+
+
+def _flushed_ms(torch, fn, reps=20, warmup=3):
+    """Median ms of one ``fn()`` between two CUDA events, a 256 MB buffer
+    written before each, outside the events, so that nothing ``fn`` reads
+    is left in the 50 MB L2."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    times = []
+    for k in range(warmup + reps):
+        flush.fill_(float(k))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if k >= warmup:
+            times.append(start.elapsed_time(end))
+    del flush
+    return statistics.median(times)
+
+
+def phase_certify_bounded(torch, ck, res, c, A, b, ub, fallback, gpu):
+    """The bounded certifier (``csrc/certify_bounded.cu``) on phase 11
+    (b)'s solve: its bases, statuses and ``at_upper``, with one failure of
+    each kind planted (``tests/test_torch_certify_bounded.py::_plant``),
+    against its twin on the card: flags equal, ``x`` and ``fun`` within
+    1e-12 (1 + |twin|), every planted instance uncertified, the one with
+    ``at_upper`` on a basic column certified, and no other uncertified but
+    the ``fallback`` the solve left to the host.  Then the kernel timed
+    chained (64 launches) and one launch after an L2 flush, and the twin
+    once, beside the kernel's bound.  Returns the kernels line's
+    numbers."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from test_torch_certify_bounded import _plant
+
+    from simplex_tpu_torch.models.batched import _CERT_TOL
+
+    B, m, n = A.shape
+    res = dataclasses.replace(res, basis=np.array(res.basis, np.int32),
+                              status=np.array(res.status, np.int32),
+                              at_upper=np.array(res.at_upper))
+    maxi = np.ones(B, bool)
+    b, planted, (ign, _) = _plant(res, c, A, b, ub, maxi)
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(a, device=dev) for a in
+            (A, b, c, maxi, res.basis, res.status, ub, res.at_upper)] \
+        + [_CERT_TOL]
+    ck.LAUNCHES_CERT_BOUNDED = 0
+    ok, x, fun = ck.certify_le_bounded_(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rok, rx, rfun = ck.certify_le_bounded_ref(*args)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    check(ck.LAUNCHES_CERT_BOUNDED == 1, f"certify_le_bounded_ launched "
+          f"{ck.LAUNCHES_CERT_BOUNDED}x, not once")
+    check(torch.equal(ok, rok), f"certified differs from the twin on "
+          f"{int((ok != rok).sum())} instances")
+    check(not bool(ok[planted].any()) and bool(ok[ign])
+          and int(ok.sum()) >= B - len(planted) - fallback,
+          f"planted {planted}, at_upper on a basic column of {ign}: the "
+          f"kernel certified {int(ok.sum())} of {B}")
+    err = 0.0
+    for got, want in ((x, rx), (fun, rfun)):
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              "NaN patterns differ from the twin")
+        got, want = got.nan_to_num(), want.nan_to_num()
+        diff = (got - want).abs()
+        err = max(err, float(diff.max()))
+        check(bool((diff <= 1e-12 * (1 + want.abs())).all()),
+              f"x or fun beyond 1e-12 (1 + |twin|) of the twin: {err!r}")
+    # What the kernel must move: A, b, c, ub, maximize, the basis's m
+    # columns and the status read, at_upper's n columns read; x, fun and
+    # the flags written.
+    nbytes = sum(t.numel() * t.element_size() for t in args[:5]) \
+        + B * m * 4 + B * 4 + B * n + ok.numel() + x.numel() * 8 \
+        + fun.numel() * 8
+    flops = B * (2 * m ** 3 / 3 + 4 * m * m + 4 * m * n)
+    # The main path's launches: one a solve_arrays call (phase 11 (b)).
+    t = {"launches": 1, "err": err, "twin": twin_ms,
+         "one": _flushed_ms(torch, lambda: ck.certify_le_bounded_(*args))}
+    chained, _ = _chain_ms(torch, lambda: ck.certify_le_bounded_(*args))
+    t["chained"] = statistics.median(chained)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
+    t["bound"], t["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                 else (t_ops, "operations"))
+    log(f"[certify-bounded] certify_le_bounded_ on phase 11 (b)'s {B} x "
+        f"({m}x{n}) solve on {gpu}, failures planted in instances "
+        f"{planted}, at_upper on a basic column of {ign}: flags equal to "
+        f"the twin, {int(ok.sum())} certified, x and fun within {err!r} of "
+        f"it; kernel {t['one']!r} ms one launch after an L2 flush, "
+        f"{t['chained']!r} ms a launch chained (64), twin {t['twin']!r} ms; "
+        f"bound {t['bound']!r} ms ({t['bound_by']}: {nbytes / 1e6!r} MB, "
+        f"{flops / 1e9!r} GFLOP float64) = {t['bound'] / t['one']!r} of "
+        f"the flushed launch, {t['bound'] / t['chained']!r} of the chained")
+    return t
 
 
 K4_SHAPES = [(10241, 10241),      # the pivot-rate tableau, (size+1)^2
@@ -2904,19 +3019,19 @@ def _chrome_overlap(path, kernel_key):
 
 
 def _host_certified(pt, cfg, c, A, b, ops, maximize, ub=None):
-    """``solve_arrays`` certified as the stream certifies, on the host: a
-    bounded batch is ``solve_arrays`` itself; any other is solved with
-    certification off, then certified by the host copy
-    ``certify_uniform_result`` (``solve_arrays`` certifies an all-<= batch
-    without bounds on the card)."""
-    from simplex_tpu_torch.models.batched import certify_uniform_result
+    """``solve_arrays`` certified as the stream certifies, on the host: its
+    assembly and loop (the float64 finish of a bounded batch included),
+    then the host copy ``certify_uniform_result`` and the reset of an
+    escalated instance's ``at_upper`` (``solve_arrays`` certifies all-<=
+    batches with ``b >= 0`` on the card)."""
+    from simplex_tpu_torch.models import batched as tmb
 
-    if ub is not None:
-        return pt.BatchedSimplexSolver(cfg).solve_arrays(
-            c, A, b, ops, maximize=maximize, ub=ub)
-    res = pt.BatchedSimplexSolver(dataclasses.replace(cfg, certify=False)) \
-        .solve_arrays(c, A, b, ops, maximize=maximize, ub=ub)
-    return certify_uniform_result(res, c, A, b, ops, maximize, ub=ub)
+    tensors, maxi, with_art = tmb._upload(c, A, b, ops, maximize,
+                                          np.dtype(cfg.dtype), cfg.device)
+    res = tmb._run_batch(tmb._assemble_on_device(tensors, maxi, with_art,
+                                                 ub=ub), cfg)
+    return tmb._reset_at_upper(tmb.certify_uniform_result(
+        res, c, A, b, ops, maximize, ub=ub), ub)
 
 
 def _kkt_close(a, b):
@@ -4106,7 +4221,8 @@ def main():
     # 11. the bounded path at full width; (b) the mknapcb9.relax cell's
     # path, K3 streaming its tiles in float32 and in the float64 finish
     k3_launches = phase_bounded(torch, pt, bk, gpu)
-    k3_mknap = phase_mknap(torch, pt, bk, compile_batch_uniform, gpu)
+    k3_mknap, cert_bounded = phase_mknap(torch, pt, bk, ck,
+                                         compile_batch_uniform, gpu)
     _graph_stats("phase 11")
 
     # 12. K4 against its twin, 13. timed, the pivot-rate path, and every
@@ -4282,6 +4398,18 @@ def main():
         "plain_ms": cert["twin"],
         "bound_ms": cert["bound"],
         "bound_by": cert["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "Cert-bounded certify_le_bounded",
+        "route": "cuda",
+        "source": "simplex_tpu_torch/csrc/certify_bounded.cu",
+        "replaces": "simplex_tpu/models/certify.py:309",
+        "launches": cert_bounded["launches"],
+        "max_abs_err": cert_bounded["err"],
+        "ms": cert_bounded["one"],
+        "plain_ms": cert_bounded["twin"],
+        "bound_ms": cert_bounded["bound"],
+        "bound_by": cert_bounded["bound_by"],
         "library_ms": None,
     }]}))
     log(gpu)

@@ -59,21 +59,13 @@
 
 #include <algorithm>
 
+#include "certify_common.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxRows = 64;             // two rows a lane
 constexpr int kMaxWarps = 4;             // instances a block
 constexpr int kStageBudget = 12288;      // bytes of A staged a warp
 constexpr size_t kBlockSmem = 48 * 1024; // dynamic shared memory, no opt-in
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kOptimal = 0;
-
-__host__ __device__ inline int pitch_of(int m) { return m | 1; }
-
-__host__ __device__ inline size_t round16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
-}
 
 // One warp's shared memory: the basis matrix (m rows of pitch_of(m)
 // doubles), y, b then x_B (kMaxRows doubles each), the basis and the row
@@ -83,24 +75,6 @@ __host__ __device__ inline size_t warp_bytes(int m, int nc, int elt) {
   return round16(sizeof(double) * m * pitch_of(m)) +
          2 * kMaxRows * (sizeof(double) + sizeof(int)) +
          round16(static_cast<size_t>(m) * nc * elt);
-}
-
-__device__ __forceinline__ double load_real(const void* p, int64_t i,
-                                            int is_f64) {
-  return is_f64 ? __ldg(static_cast<const double*>(p) + i)
-                : static_cast<double>(__ldg(static_cast<const float*>(p) + i));
-}
-
-__device__ __forceinline__ double warp_max(double v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v = fmax(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 // Columns [j0, j0 + w) of the instance's A (m x n, row-major) into the
@@ -130,16 +104,6 @@ __device__ __forceinline__ void stage_chunk(TA* stage, const TA* Ai, int m,
         stage[i * nc + jj] = __ldg(Ai + static_cast<int64_t>(i) * n + j0 + jj);
   }
   __syncwarp();
-}
-
-__device__ __forceinline__ void reject(double* xrow, int n, int lane,
-                                       uint8_t* cert, double* fun) {
-  const double nan = __longlong_as_double(0x7ff8000000000000LL);
-  for (int j = lane; j < n; j += kWarp) xrow[j] = nan;
-  if (lane == 0) {
-    *cert = 0;
-    *fun = nan;
-  }
 }
 
 template <typename TA>

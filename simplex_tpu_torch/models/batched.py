@@ -22,10 +22,10 @@ as in the JAX package:
 
 Every verdict is f64-certified and untrusted ones are re-solved exactly on
 the host (``models/certify.py``) when ``config.certify`` is on; a CUDA
-all-``<=`` batch without bounds is certified on the card
-(:func:`_certify_on_device`), and only what the card does not certify goes
-to the host.  A float32 all-``<=`` batch with bounds goes on in float64
-from where its loop stopped before it is certified
+all-``<=`` batch with ``b >= 0``, without or with bounds, is certified on
+the card (:func:`_certify_on_device`), and only what the card does not
+certify goes to the host.  A float32 all-``<=`` batch with bounds goes on
+in float64 from where its loop stopped before it is certified
 (``ops/batched.py::finish_bounded_f64``).
 
 The numpy helpers (``_round_up``, ``BatchResult``, ``CompiledBatch``,
@@ -650,33 +650,41 @@ _CERT_TOL = inspect.signature(certify_uniform_result).parameters["tol"].default
 
 def _certifies_on_device(A_t, b, ops, ub) -> bool:
     """Whether :func:`_certify_on_device` takes a batch: its tensors on a
-    CUDA device, every row ``<=`` with ``b >= 0``, no upper bounds, and
-    rows within the kernel's limit."""
+    CUDA device, every row ``<=`` with ``b >= 0``, rows within the kernels'
+    limit, and no upper bounds or ``ub`` of shape (n,) or (B, n) with
+    entries in [0, +inf]."""
     from ..ops.certify_kernel import MAX_ROWS
 
-    return (A_t.device.type == "cuda" and ub is None
-            and 1 <= A_t.shape[1] <= MAX_ROWS and A_t.shape[2] >= 1
+    B, m, n = A_t.shape
+    if not (A_t.device.type == "cuda" and 1 <= m <= MAX_ROWS and n >= 1
             and bool(np.all(np.asarray(ops) == OP_LE))
-            and not bool(np.any(np.asarray(b) < 0)))
+            and not bool(np.any(np.asarray(b) < 0))):
+        return False
+    if ub is None:
+        return True
+    ub = np.asarray(ub)
+    return ub.shape in ((n,), (B, n)) and bool(np.all(ub >= 0))
 
 
 def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
-                       tensors) -> BatchResult:
-    """:func:`certify_uniform_result` of an all-``<=`` batch with ``b >= 0``
-    and no bounds, on the solve's device, in place.
+                       tensors, ub=None) -> BatchResult:
+    """:func:`certify_uniform_result` of an all-``<=`` batch with ``b >= 0``,
+    without or with upper bounds ``ub``, on the solve's device, in place.
 
     ``tensors`` are :func:`_upload`'s (the raw ``c``, ``A``, ``b`` in the
     solve's dtype, the ops and ``maximize``).  The float64 KKT check of
-    every instance runs in one kernel (``ops/certify_kernel.py``), which
-    reads ``A``, ``b`` and ``c`` as the user gave them: an upload is reused
-    where it holds the exact values, else the array goes up again in
-    float64.  The instances it does not certify, every non-optimal claim
-    among them, go as one sub-batch to the host copy
-    :func:`certify_uniform_result`, which checks them again and escalates
-    them as it does a whole batch; the solve record counts them as
-    ``certify_fallback``.
+    every instance runs in one kernel (``ops/certify_kernel.py``:
+    ``certify_le_``, or ``certify_le_bounded_`` with the solve's
+    ``at_upper`` where ``ub`` is given), which reads ``A``, ``b``, ``c`` and
+    ``ub`` as the user gave them: an upload is reused where it holds the
+    exact values, else the array goes up again in float64 (``ub`` goes up in
+    its own float32 or float64).  The instances it does not certify, every
+    non-optimal claim among them, go as one sub-batch, with their ``ub``
+    and ``at_upper`` rows, to the host copy :func:`certify_uniform_result`,
+    which checks them again and escalates them as it does a whole batch;
+    the solve record counts them as ``certify_fallback``.
     """
-    from ..ops.certify_kernel import certify_le_
+    from ..ops.certify_kernel import certify_le_, certify_le_bounded_
 
     c_t, A_t, b_t, _, max_t = tensors
     dev = A_t.device
@@ -693,8 +701,19 @@ def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
                                 device=dev)
         status = torch.as_tensor(np.asarray(res.status, np.int32),
                                  device=dev)
-        ok_t, x_t, fun_t = certify_le_(exact[0], exact[1], exact[2], max_t,
-                                       basis, status, _CERT_TOL)
+        if ub is None:
+            ok_t, x_t, fun_t = certify_le_(exact[0], exact[1], exact[2],
+                                           max_t, basis, status, _CERT_TOL)
+        else:
+            ub = np.asarray(ub)
+            ub_t = torch.as_tensor(np.ascontiguousarray(
+                ub if ub.dtype in (np.float32, np.float64)
+                else ub.astype(np.float64)), device=dev)
+            up_t = (None if res.at_upper is None else torch.as_tensor(
+                np.ascontiguousarray(res.at_upper, bool), device=dev))
+            ok_t, x_t, fun_t = certify_le_bounded_(
+                exact[0], exact[1], exact[2], max_t, basis, status, ub_t,
+                up_t, _CERT_TOL)
         certified = ok_t.cpu().numpy()
         x = x_t.cpu().numpy()
         fun = fun_t.cpu().numpy()
@@ -715,9 +734,12 @@ def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
                 status=solved.status[bad], success=solved.success[bad],
                 nit=solved.nit,
                 pivots=None if solved.pivots is None else solved.pivots[bad],
-                basis=solved.basis[bad]),
+                basis=solved.basis[bad],
+                at_upper=(None if solved.at_upper is None
+                          else solved.at_upper[bad])),
             np.asarray(c)[bad], np.asarray(A)[bad], np.asarray(b)[bad],
-            ops if ops.ndim == 1 else ops[bad], maximize[bad])
+            ops if ops.ndim == 1 else ops[bad], maximize[bad],
+            ub=ub if ub is None or ub.ndim == 1 else ub[bad])
         for name in ("status", "x", "fun", "z", "certified", "escalated"):
             getattr(res, name)[bad] = getattr(sub, name)
     res.success = res.status == STATUS_OPTIMAL
@@ -796,11 +818,11 @@ class BatchedSimplexSolver:
             with trace_span("batched.certify"):
                 if _certifies_on_device(tensors[1], b, ops, ub):
                     res = _certify_on_device(res, c, A, b, ops, maxi,
-                                             tensors)
+                                             tensors, ub=ub)
                 else:
-                    res = _reset_at_upper(
-                        certify_uniform_result(res, c, A, b, ops, maximize,
-                                               ub=ub), ub)
+                    res = certify_uniform_result(res, c, A, b, ops,
+                                                 maximize, ub=ub)
+                res = _reset_at_upper(res, ub)
         return res
 
     def _solve_compiled(self, cb: CompiledBatch) -> BatchResult:

@@ -118,6 +118,11 @@ def _cert():
             ctypes.c_double, _P, _P, _P, _P]
 
 
+def _cert_bounded():
+    return [_P, _P, _P, _P, _I32, _I32, _I32, _I64, _P, _I64, _P, _P, _I64,
+            _P, _I64, _I64, _I64, ctypes.c_double, _P, _P, _P, _P]
+
+
 # Every C entry point of csrc/*.cu and its argument types, in order; each
 # returns a CUDA error code (int).  tests/test_torch_kernel_abi.py holds
 # this table to the sources' signatures.
@@ -138,6 +143,11 @@ ARGTYPES = {
     # status, B, m, n, tol, certified, x, fun, stream
     "certify_le_f32": _cert(),
     "certify_le_f64": _cert(),
+    # csrc/certify_bounded.cu: A, b, c, ub, b_f64, c_f64, ub_f64, ld_ub,
+    # at_upper, ld_up, maximize, basis, ldb, status, B, m, n, tol,
+    # certified, x, fun, stream
+    "certify_le_bounded_f32": _cert_bounded(),
+    "certify_le_bounded_f64": _cert_bounded(),
     # csrc/graph_steps.cu: n, parts, flags, counts, limits, exec_out,
     # stream; exec, stream; graph, n_types, counts; stream_out
     "graph_chain_build": [_I64, _P, _P, _P, _P, _P, _P],

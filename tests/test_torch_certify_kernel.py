@@ -222,7 +222,9 @@ def test_the_route_takes_only_cuda_le_batches_without_bounds():
     assert tmb._certifies_on_device(ok, b, ops, None)
     assert not tmb._certifies_on_device(ok, b, np.array([-1, 1, -1]), None)
     assert not tmb._certifies_on_device(ok, -b, ops, None)
-    assert not tmb._certifies_on_device(ok, b, ops, np.ones(4))
+    # Bounds the kernels take go to the bounded one
+    # (tests/test_torch_certify_bounded.py); a negative one goes nowhere.
+    assert not tmb._certifies_on_device(ok, b, ops, -np.ones(4))
     assert not tmb._certifies_on_device(T((2, ck.MAX_ROWS + 1, 4)),
                                         np.ones((2, ck.MAX_ROWS + 1)),
                                         np.full(ck.MAX_ROWS + 1, -1), None)
