@@ -46,8 +46,9 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    on the 16384 x (30x50) batch of ``bench.py::bench_batched_solve``,
    certified, checked against HiGHS on a sample, with the K2 launch count
    of that run and its one launch of the certifier kernel
-   (``csrc/certify_le.cu``); the kernel on that solve's bases, with
-   planted failures, against its twin on the card, both timed; one more
+   (``csrc/certify_bounded.cu``, without bounds: one ``+inf`` row); the
+   kernel on that solve's bases, with planted failures, against its twin
+   on the card, timed after an L2 flush and chained, the twin too; one more
    run under ``torch.profiler`` (K2's share of the device time); then a 1024 x (30x50) batch with ``>=`` and ``=`` rows
    through the two-phase loop, every verdict checked against HiGHS;
 9. K3 (``csrc/fused_pivot_step_bounded.cu``) against its plain PyTorch
@@ -70,17 +71,17 @@ Phases, in order; any failure raises, so the exit code is non-zero:
     the benchmark's ``mknapcb9.relax`` cell: ``solve_arrays`` on a 16384 x
     (30x500) draw of its traffic (``lpbench/traffic/mknap.py``, ``ub`` = 1,
     float32, certified), K3 launched exactly once an iteration plus the
-    float64 finish's launches and the bounded certifier
+    float64 finish's launches and the certifier kernel
     (``csrc/certify_bounded.cu``) once, every answer optimal, certified and
     in its bounds, ``at_upper`` at the bound, the flips counted, 512
     answers against the plain bounded reference
-    (``lpbench/reference/bounded.py``); the bounded certifier on that
-    solve's claims, failures planted, against its twin (flags equal, ``x``
-    and ``fun`` within 1e-12), timed chained and after an L2 flush beside
-    its bound and the twin (in the kernels line); then K3 against its
-    twin, 0 ulps, on that draw's float32 tableau (16384
-    x 32 x 640) and on a float64 one at the finish's chunk (4096 x 32 x
-    640), whose tiles lie above the 64 KB stage, so every instance streams:
+    (``lpbench/reference/bounded.py``); the certifier on that solve's
+    claims with ``ub`` and ``at_upper``, failures planted, against its twin
+    (flags equal, ``x`` and ``fun`` within 1e-12), timed chained and after
+    an L2 flush beside its bound and the twin (in the kernels line); then
+    K3 against its twin, 0 ulps, on that draw's float32 tableau (16384 x 32
+    x 640) and on a float64 one at the finish's chunk (4096 x 32 x 640),
+    whose tiles lie above the 64 KB stage, so every instance streams:
     eight steps from a state 200 K3 steps in, flips and pivots among them;
     one launch of each timed against its twin and its bound (both shapes in
     the kernels line);
@@ -1004,7 +1005,7 @@ def _gate(z_ref, z):
 
 def phase_batched(torch, pt, bk, ck, gpu, B=16384):
     """The batched path through its entry point; returns the K2 launches
-    of the full-width solve and :func:`phase_certify_kernel`'s dict."""
+    of the full-width solve and :func:`phase_certify`'s dict."""
     solver = pt.BatchedSimplexSolver(pt.SolverConfig(device="cuda"))
     c, A, b, ops = bench_batch(B)
     warm = solver.solve_arrays(*bench_batch(256), maximize=True)
@@ -1050,7 +1051,7 @@ def phase_batched(torch, pt, bk, ck, gpu, B=16384):
         f"{res.nit}, K2 launches {launches_full}, certifier launches 1 "
         f"({fallback} instances left to the host copy); z within "
         f"1e-6(1+|z|) of HiGHS on 256 sampled ({highs_s!r} s on the host)")
-    cert = phase_certify_kernel(torch, ck, res, c, A, b, fallback, gpu)
+    cert = phase_certify(torch, ck, res, c, A, b, fallback, gpu)
     _profile_solve(torch, lambda: solver.solve_arrays(c, A, b, ops,
                                                       maximize=True),
                    "fused_pivot_step_kernel", "K2", "batched", gpu)
@@ -1106,27 +1107,64 @@ def phase_batched(torch, pt, bk, ck, gpu, B=16384):
 F64_FLOPS = 34e12
 
 
-def phase_certify_kernel(torch, ck, res, c, A, b, fallback, gpu):
-    """The certifier kernel (``csrc/certify_le.cu``) on phase 8's solve: its
-    bases and statuses, with one failure of each kind planted
-    (``tests/test_torch_certify_kernel.py::_plant``), against its twin on
-    the card: flags equal, ``x`` and ``fun`` within 1e-12 (1 + |twin|),
-    every planted instance uncertified and no other but the ``fallback``
-    the solve left to the host.  Then both timed (median of 20, CUDA
-    events).  Returns the kernels line's numbers."""
+def _flushed_ms(torch, fn, reps=20, warmup=3):
+    """Median ms of one ``fn()`` between two CUDA events, a 256 MB buffer
+    written before each, outside the events, so that nothing ``fn`` reads
+    is left in the 50 MB L2."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    times = []
+    for k in range(warmup + reps):
+        flush.fill_(float(k))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if k >= warmup:
+            times.append(start.elapsed_time(end))
+    del flush
+    return statistics.median(times)
+
+
+def phase_certify(torch, ck, res, c, A, b, fallback, gpu, ub=None):
+    """The certifier kernel (``csrc/certify_bounded.cu``) on a solve's
+    claims: phase 8's without bounds, phase 11 (b)'s with ``ub`` and
+    ``at_upper``.  One failure of each kind is planted (``_plant`` of
+    ``tests/test_torch_certify_kernel.py``, with bounds of
+    ``tests/test_torch_certify_bounded.py``), and the kernel is checked
+    against its twin on the card: flags equal, ``x`` and ``fun`` within
+    1e-12 (1 + |twin|), every planted instance uncertified, with bounds the
+    one with ``at_upper`` on a basic column certified, and no other
+    uncertified but the ``fallback`` the solve left to the host.  Then the
+    kernel timed one launch after an L2 flush and chained (64 launches),
+    and the twin, beside the kernel's bound.  Returns the kernels line's
+    numbers."""
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tests"))
-    from test_torch_certify_kernel import _plant
+    import test_torch_certify_bounded
+    import test_torch_certify_kernel
 
     from simplex_tpu_torch.models.batched import _CERT_TOL
 
     B, m, n = A.shape
+    maxi = np.ones(B, bool)
     res = dataclasses.replace(res, basis=np.array(res.basis, np.int32),
                               status=np.array(res.status, np.int32))
-    b, planted = _plant(res, c, A, b, np.ones(B, bool))
+    if ub is None:
+        b, planted = test_torch_certify_kernel._plant(res, c, A, b, maxi)
+        kept, bounds, where = [], (), f"phase 8's {B} x ({m}x{n}) solve"
+    else:
+        res.at_upper = np.array(res.at_upper)
+        b, planted, (ign, _) = test_torch_certify_bounded._plant(
+            res, c, A, b, ub, maxi)
+        kept, bounds = [ign], (ub, res.at_upper)
+        where = (f"phase 11 (b)'s {B} x ({m}x{n}) solve, ub and at_upper "
+                 f"(on a basic column of {ign})")
     dev = torch.device("cuda")
     args = [torch.as_tensor(a, device=dev) for a in
-            (A, b, c, np.ones(B, bool), res.basis, res.status)] + [_CERT_TOL]
+            (A, b, c, maxi, res.basis, res.status)] + [_CERT_TOL] \
+        + [torch.as_tensor(a, device=dev) for a in bounds]
     ck.LAUNCHES_CERT = 0
     ok, x, fun = ck.certify_le_(*args)
     rok, rx, rfun = ck.certify_le_ref(*args)
@@ -1135,9 +1173,10 @@ def phase_certify_kernel(torch, ck, res, c, A, b, fallback, gpu):
           f"{ck.LAUNCHES_CERT}x, not once")
     check(torch.equal(ok, rok), f"certified differs from the twin on "
           f"{int((ok != rok).sum())} instances")
-    check(not bool(ok[planted].any())
+    check(not bool(ok[planted].any()) and bool(ok[kept].all())
           and int(ok.sum()) >= B - len(planted) - fallback,
-          f"planted {planted}: the kernel certified {int(ok.sum())} of {B}")
+          f"planted {planted}, kept {kept}: the kernel certified "
+          f"{int(ok.sum())} of {B}")
     err = 0.0
     for got, want in ((x, rx), (fun, rfun)):
         check(torch.equal(torch.isnan(got), torch.isnan(want)),
@@ -1147,21 +1186,32 @@ def phase_certify_kernel(torch, ck, res, c, A, b, fallback, gpu):
         err = max(err, float(diff.max()))
         check(bool((diff <= 1e-12 * (1 + want.abs())).all()),
               f"x or fun beyond 1e-12 (1 + |twin|) of the twin: {err!r}")
+    # What the kernel must move: A, b, c, maximize, ub (the wrapper's one
+    # +inf row without bounds), the basis's m columns and the status read,
+    # at_upper's n columns read where given; x, fun and the flags written.
+    ub_bytes = args[7].numel() * args[7].element_size() if bounds else n * 4
     nbytes = sum(t.numel() * t.element_size() for t in args[:4]) \
-        + B * m * 4 + B * 4 + ok.numel() + x.numel() * 8 + fun.numel() * 8
-    flops = B * (2 * m ** 3 / 3 + 4 * m * m + 2 * m * n)
-    t = {"launches": ck.LAUNCHES_CERT, "err": err,
-         "one": _time_ms(lambda: ck.certify_le_(*args)),
-         "twin": _time_ms(lambda: ck.certify_le_ref(*args))}
+        + ub_bytes + B * m * 4 + B * 4 + (B * n if bounds else 0) \
+        + ok.numel() + x.numel() * 8 + fun.numel() * 8
+    flops = B * (2 * m ** 3 / 3 + 4 * m * m + (4 if bounds else 2) * m * n)
+    # The main path's launches: one a solve_arrays call (phases 8, 11 (b)).
+    t = {"launches": 1, "err": err, "shape": (B, m, n),
+         "twin": _time_ms(lambda: ck.certify_le_ref(*args), warmup=1,
+                          reps=5),
+         "one": _flushed_ms(torch, lambda: ck.certify_le_(*args))}
+    chained, _ = _chain_ms(torch, lambda: ck.certify_le_(*args))
+    t["chained"] = statistics.median(chained)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
     t["bound"], t["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                  else (t_ops, "operations"))
-    log(f"[certify] certify_le_ on phase 8's {B} x ({m}x{n}) solve on {gpu}, "
-        f"failures planted in instances {planted}: flags equal to the twin, "
-        f"{int(ok.sum())} certified, x and fun within {err!r} of it; kernel "
-        f"{t['one']!r} ms, twin {t['twin']!r} ms; bound {t['bound']!r} ms "
+    log(f"[certify] certify_le_ on {where} on {gpu}, failures planted in "
+        f"instances {planted}: flags equal to the twin, {int(ok.sum())} "
+        f"certified, x and fun within {err!r} of it; kernel {t['one']!r} "
+        f"ms one launch after an L2 flush, {t['chained']!r} ms a launch "
+        f"chained (64), twin {t['twin']!r} ms; bound {t['bound']!r} ms "
         f"({t['bound_by']}: {nbytes / 1e6!r} MB, {flops / 1e9!r} GFLOP "
-        f"float64) = {t['bound'] / t['one']!r} of the kernel's time")
+        f"float64) = {t['bound'] / t['one']!r} of the flushed launch, "
+        f"{t['bound'] / t['chained']!r} of the chained")
     return t
 
 
@@ -1708,18 +1758,18 @@ def phase_mknap(torch, pt, bk, ck, compile_batch_uniform, gpu, B=16384,
     """Phase 11 (b): the ``mknapcb9.relax`` cell's path.  ``solve_arrays``
     on a draw of its traffic (``ub`` = 1, all ``<=``, float32, certified):
     K3 launched once an iteration of the loop plus the float64 finish's
-    launches, the bounded certifier once, every answer optimal and
+    launches, the certifier kernel once, every answer optimal and
     certified, ``x`` in its bounds and ``at_upper`` equal to ``x`` at its
     bound, flips counted, 512 answers against the plain bounded reference
-    (``lpbench/reference/bounded.py``); the bounded certifier on the
-    solve's claims (:func:`phase_certify_bounded`).
+    (``lpbench/reference/bounded.py``); the certifier on the solve's
+    claims with ``ub`` and ``at_upper`` (:func:`phase_certify`).
     Then K3 against its twin (:func:`_k3_against_twin`) on the draw's
     float32 tableau (B, 32, 640) and on a float64 one at the finish's chunk
     (4096, 32, 640), both above the stage bound, so every instance streams:
     from the first state advanced ``MKNAP_ADVANCE`` K3 steps, eight steps,
     flips and pivots among them; then one launch of each timed from that
     state, with its bound.  Returns {dtype name: the kernels line's
-    numbers} and :func:`phase_certify_bounded`'s dict."""
+    numbers} and :func:`phase_certify`'s dict."""
     from lpbench.reference import bounded as reference
     from simplex_tpu_torch.models import batched as tmb
     from simplex_tpu_torch.ops import batched as tops
@@ -1733,7 +1783,7 @@ def phase_mknap(torch, pt, bk, ck, compile_batch_uniform, gpu, B=16384,
     solver = pt.BatchedSimplexSolver(cfg)
 
     bk.LAUNCHES = bk.LAUNCHES_K3 = 0
-    ck.LAUNCHES_CERT = ck.LAUNCHES_CERT_BOUNDED = 0
+    ck.LAUNCHES_CERT = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solver.solve_arrays(c, A, b, ops, maximize=True, ub=ub)
@@ -1743,10 +1793,8 @@ def phase_mknap(torch, pt, bk, ck, compile_batch_uniform, gpu, B=16384,
     finish = counts.get("finish_launches", 0)
     fallback = counts.get("certify_fallback")
     check(k2_launches == 0, f"the MKP solve launched K2 {k2_launches}x")
-    check(ck.LAUNCHES_CERT_BOUNDED == 1 and ck.LAUNCHES_CERT == 0,
-          f"the MKP solve launched the bounded certifier "
-          f"{ck.LAUNCHES_CERT_BOUNDED}x and the unbounded one "
-          f"{ck.LAUNCHES_CERT}x, not once and never")
+    check(ck.LAUNCHES_CERT == 1, f"the MKP solve launched the certifier "
+          f"{ck.LAUNCHES_CERT}x, not once")
     check(fallback is not None, "the MKP solve record holds no "
           "certify_fallback count")
     check(k3_launches == res.nit + finish,
@@ -1781,11 +1829,11 @@ def phase_mknap(torch, pt, bk, ck, compile_batch_uniform, gpu, B=16384,
         f"{int(res.pivots.max())}, of them flips {flips} "
         f"({flips / max(int(res.pivots.sum()), 1)!r}), nit {res.nit}; K3 "
         f"launches {k3_launches} = {res.nit} + the finish's {finish} "
-        f"({counts.get('finish_steps', 0)} finish steps); bounded "
+        f"({counts.get('finish_steps', 0)} finish steps); the "
         f"certifier launches 1 ({fallback} instances left to the host "
         f"copy); z within {float(gap.max())!r} (relative) of the plain "
         f"reference on {len(sample)} sampled")
-    cert = phase_certify_bounded(torch, ck, res, c, A, b, ub, fallback, gpu)
+    cert = phase_certify(torch, ck, res, c, A, b, fallback, gpu, ub=ub)
     del res, solver, ref
 
     out = {}
@@ -1850,104 +1898,6 @@ def phase_mknap(torch, pt, bk, ck, compile_batch_uniform, gpu, B=16384,
         del k, first, st, res
     torch.cuda.empty_cache()
     return out, cert
-
-
-def _flushed_ms(torch, fn, reps=20, warmup=3):
-    """Median ms of one ``fn()`` between two CUDA events, a 256 MB buffer
-    written before each, outside the events, so that nothing ``fn`` reads
-    is left in the 50 MB L2."""
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    times = []
-    for k in range(warmup + reps):
-        flush.fill_(float(k))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        if k >= warmup:
-            times.append(start.elapsed_time(end))
-    del flush
-    return statistics.median(times)
-
-
-def phase_certify_bounded(torch, ck, res, c, A, b, ub, fallback, gpu):
-    """The bounded certifier (``csrc/certify_bounded.cu``) on phase 11
-    (b)'s solve: its bases, statuses and ``at_upper``, with one failure of
-    each kind planted (``tests/test_torch_certify_bounded.py::_plant``),
-    against its twin on the card: flags equal, ``x`` and ``fun`` within
-    1e-12 (1 + |twin|), every planted instance uncertified, the one with
-    ``at_upper`` on a basic column certified, and no other uncertified but
-    the ``fallback`` the solve left to the host.  Then the kernel timed
-    chained (64 launches) and one launch after an L2 flush, and the twin
-    once, beside the kernel's bound.  Returns the kernels line's
-    numbers."""
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "tests"))
-    from test_torch_certify_bounded import _plant
-
-    from simplex_tpu_torch.models.batched import _CERT_TOL
-
-    B, m, n = A.shape
-    res = dataclasses.replace(res, basis=np.array(res.basis, np.int32),
-                              status=np.array(res.status, np.int32),
-                              at_upper=np.array(res.at_upper))
-    maxi = np.ones(B, bool)
-    b, planted, (ign, _) = _plant(res, c, A, b, ub, maxi)
-    dev = torch.device("cuda")
-    args = [torch.as_tensor(a, device=dev) for a in
-            (A, b, c, maxi, res.basis, res.status, ub, res.at_upper)] \
-        + [_CERT_TOL]
-    ck.LAUNCHES_CERT_BOUNDED = 0
-    ok, x, fun = ck.certify_le_bounded_(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rok, rx, rfun = ck.certify_le_bounded_ref(*args)
-    torch.cuda.synchronize()
-    twin_ms = (time.perf_counter() - t0) * 1e3
-    check(ck.LAUNCHES_CERT_BOUNDED == 1, f"certify_le_bounded_ launched "
-          f"{ck.LAUNCHES_CERT_BOUNDED}x, not once")
-    check(torch.equal(ok, rok), f"certified differs from the twin on "
-          f"{int((ok != rok).sum())} instances")
-    check(not bool(ok[planted].any()) and bool(ok[ign])
-          and int(ok.sum()) >= B - len(planted) - fallback,
-          f"planted {planted}, at_upper on a basic column of {ign}: the "
-          f"kernel certified {int(ok.sum())} of {B}")
-    err = 0.0
-    for got, want in ((x, rx), (fun, rfun)):
-        check(torch.equal(torch.isnan(got), torch.isnan(want)),
-              "NaN patterns differ from the twin")
-        got, want = got.nan_to_num(), want.nan_to_num()
-        diff = (got - want).abs()
-        err = max(err, float(diff.max()))
-        check(bool((diff <= 1e-12 * (1 + want.abs())).all()),
-              f"x or fun beyond 1e-12 (1 + |twin|) of the twin: {err!r}")
-    # What the kernel must move: A, b, c, ub, maximize, the basis's m
-    # columns and the status read, at_upper's n columns read; x, fun and
-    # the flags written.
-    nbytes = sum(t.numel() * t.element_size() for t in args[:5]) \
-        + B * m * 4 + B * 4 + B * n + ok.numel() + x.numel() * 8 \
-        + fun.numel() * 8
-    flops = B * (2 * m ** 3 / 3 + 4 * m * m + 4 * m * n)
-    # The main path's launches: one a solve_arrays call (phase 11 (b)).
-    t = {"launches": 1, "err": err, "twin": twin_ms,
-         "one": _flushed_ms(torch, lambda: ck.certify_le_bounded_(*args))}
-    chained, _ = _chain_ms(torch, lambda: ck.certify_le_bounded_(*args))
-    t["chained"] = statistics.median(chained)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
-    t["bound"], t["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                                 else (t_ops, "operations"))
-    log(f"[certify-bounded] certify_le_bounded_ on phase 11 (b)'s {B} x "
-        f"({m}x{n}) solve on {gpu}, failures planted in instances "
-        f"{planted}, at_upper on a basic column of {ign}: flags equal to "
-        f"the twin, {int(ok.sum())} certified, x and fun within {err!r} of "
-        f"it; kernel {t['one']!r} ms one launch after an L2 flush, "
-        f"{t['chained']!r} ms a launch chained (64), twin {t['twin']!r} ms; "
-        f"bound {t['bound']!r} ms ({t['bound_by']}: {nbytes / 1e6!r} MB, "
-        f"{flops / 1e9!r} GFLOP float64) = {t['bound'] / t['one']!r} of "
-        f"the flushed launch, {t['bound'] / t['chained']!r} of the chained")
-    return t
 
 
 K4_SHAPES = [(10241, 10241),      # the pivot-rate tableau, (size+1)^2
@@ -4387,31 +4337,20 @@ def main():
         "bound_ms": k4["bound"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["add_"],
-    }, {
-        "name": "Cert certify_le",
-        "route": "cuda",
-        "source": "simplex_tpu_torch/csrc/certify_le.cu",
-        "replaces": "simplex_tpu/models/certify.py:309",
-        "launches": cert["launches"],
-        "max_abs_err": cert["err"],
-        "ms": cert["one"],
-        "plain_ms": cert["twin"],
-        "bound_ms": cert["bound"],
-        "bound_by": cert["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "Cert-bounded certify_le_bounded",
+    }] + [{
+        "name": "Cert certify_le {}x{}x{}{}".format(
+            *t["shape"], " bounded" if bounded else ""),
         "route": "cuda",
         "source": "simplex_tpu_torch/csrc/certify_bounded.cu",
         "replaces": "simplex_tpu/models/certify.py:309",
-        "launches": cert_bounded["launches"],
-        "max_abs_err": cert_bounded["err"],
-        "ms": cert_bounded["one"],
-        "plain_ms": cert_bounded["twin"],
-        "bound_ms": cert_bounded["bound"],
-        "bound_by": cert_bounded["bound_by"],
+        "launches": t["launches"],
+        "max_abs_err": t["err"],
+        "ms": t["one"],
+        "plain_ms": t["twin"],
+        "bound_ms": t["bound"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
-    }]}))
+    } for bounded, t in ((False, cert), (True, cert_bounded))]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

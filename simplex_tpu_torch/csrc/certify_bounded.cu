@@ -1,19 +1,21 @@
-// The float64 certifier of a bounded all-<= batch: the KKT check of every
-// instance's claimed optimal basis (rows A x <= b with b >= 0, 0 <= x <=
-// ub), one warp an instance, for Hopper (sm_90a).
+// The float64 certifier of an all-<= batch, with or without upper bounds:
+// the KKT check of every instance's claimed optimal basis (rows A x <= b
+// with b >= 0, 0 <= x <= ub), one warp an instance, for Hopper (sm_90a).
+// A batch without bounds comes as one +inf ub row and no at_upper: the
+// at-upper set is then empty, b_eff = b, and the check is that of the
+// unbounded KKT system, term for term.
 //
-// Replaces no TPU kernel: the JAX package certifies a bounded batch on the
-// host in numpy (simplex_tpu/models/certify.py::certify_sweep_le_f64 with
-// ub and at_upper, copied as it is into the port), which took about half
-// of a 16384 x (30 x 500) batched solve beside a card with nothing to do.
-// This kernel computes what its plain PyTorch twin
-// simplex_tpu_torch/ops/certify_kernel.py::certify_le_bounded_ref
-// computes, step for step (sums may round differently where the compiler
-// contracts a product into an add), and that is what certify_sweep_le_f64
-// computes, except that B x_B = b_eff and B^T y = c_B are solved from one
-// LU instead of two.  Per instance (basis[k], k < m, its claimed basic
-// columns; slack i is column n + i; c_min = -c where the instance
-// maximizes, else c):
+// Replaces no TPU kernel: the JAX package certifies a batch on the host in
+// numpy (simplex_tpu/models/certify.py::certify_sweep_le_f64, with ub and
+// at_upper where the batch has bounds, copied as it is into the port),
+// which took most of a batched solve's time beside a card with nothing to
+// do.  This kernel computes what its plain PyTorch twin
+// simplex_tpu_torch/ops/certify_kernel.py::certify_le_ref computes, step
+// for step (sums may round differently where the compiler contracts a
+// product into an add), and that is what certify_sweep_le_f64 computes,
+// except that B x_B = b_eff and B^T y = c_B are solved from one LU instead
+// of two.  Per instance (basis[k], k < m, its claimed basic columns; slack
+// i is column n + i; c_min = -c where the instance maximizes, else c):
 //
 //   claim     status == OPTIMAL and 0 <= basis[k] < n + m for every k
 //   basis     B[:, k] = A[:, basis[k]] (structural) or e_(basis[k] - n)
@@ -46,7 +48,8 @@
 // (30 x 500) in float32 (A alone 983 MB), 0.34 ms at 3.35 TB/s.  Its
 // float64 work (an LU of about m^3 / 3 multiply-adds, four triangular
 // solves, 2 m n multiply-adds for the reduced costs and b_eff) is about
-// 1.3 GFLOP there, 0.04 ms at 34 TFLOP/s.  So the design is about keeping
+// 1.3 GFLOP there, 0.04 ms at 34 TFLOP/s (at 16384 x (30 x 50): 115 MB,
+// 0.03 ms, and 0.4 GFLOP, 0.01 ms).  So the design is about keeping
 // A streaming while each warp walks its instance's chain of small
 // dependent steps:
 //   * A is read once.  Only x_B needs b_eff and y needs only B, so the
@@ -69,7 +72,8 @@
 //     bank conflict); the pivot search is a shuffle argmax, each lane
 //     eliminates in its two rows, the substitutions keep their right-hand
 //     sides in registers and broadcast each solved entry with a shuffle;
-//   * a warp's shared memory is about 26 KB at 30 x 500 in float32: four
+//   * a warp's shared memory is about 26 KB at 30 x 500 in float32 (and at
+//     30 x 50, where A is one chunk and the second slot stays unused): four
 //     warps a block by opt-in dynamic shared memory, eight warps an SM.
 // It launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -81,13 +85,49 @@
 
 #include <algorithm>
 
-#include "certify_common.cuh"
-
 namespace {
 
+constexpr int kWarp = 32;
+constexpr int kMaxRows = 64;       // two rows a lane
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kOptimal = 0;
 constexpr int kMaxWarps = 4;       // instances a block
 constexpr int kChunkBytes = 8192;  // bytes of A a ring slot holds, about
 constexpr int kSlots = 2;          // one slot read while the next lands
+
+__host__ __device__ inline int pitch_of(int m) { return m | 1; }
+
+__host__ __device__ inline size_t round16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+__device__ __forceinline__ double load_real(const void* p, int64_t i,
+                                            int is_f64) {
+  return is_f64 ? __ldg(static_cast<const double*>(p) + i)
+                : static_cast<double>(__ldg(static_cast<const float*>(p) + i));
+}
+
+__device__ __forceinline__ double warp_max(double v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    v = fmax(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void reject(double* xrow, int n, int lane,
+                                       uint8_t* cert, double* fun) {
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  for (int j = lane; j < n; j += kWarp) xrow[j] = nan;
+  if (lane == 0) {
+    *cert = 0;
+    *fun = nan;
+  }
+}
 
 // A slot's row pitch in elements: at least nc, a whole number of 16-byte
 // vectors, and 16 bytes past a multiple of 128.

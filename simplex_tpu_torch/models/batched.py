@@ -650,7 +650,7 @@ _CERT_TOL = inspect.signature(certify_uniform_result).parameters["tol"].default
 
 def _certifies_on_device(A_t, b, ops, ub) -> bool:
     """Whether :func:`_certify_on_device` takes a batch: its tensors on a
-    CUDA device, every row ``<=`` with ``b >= 0``, rows within the kernels'
+    CUDA device, every row ``<=`` with ``b >= 0``, rows within the kernel's
     limit, and no upper bounds or ``ub`` of shape (n,) or (B, n) with
     entries in [0, +inf]."""
     from ..ops.certify_kernel import MAX_ROWS
@@ -673,18 +673,19 @@ def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
 
     ``tensors`` are :func:`_upload`'s (the raw ``c``, ``A``, ``b`` in the
     solve's dtype, the ops and ``maximize``).  The float64 KKT check of
-    every instance runs in one kernel (``ops/certify_kernel.py``:
-    ``certify_le_``, or ``certify_le_bounded_`` with the solve's
-    ``at_upper`` where ``ub`` is given), which reads ``A``, ``b``, ``c`` and
-    ``ub`` as the user gave them: an upload is reused where it holds the
-    exact values, else the array goes up again in float64 (``ub`` goes up in
-    its own float32 or float64).  The instances it does not certify, every
-    non-optimal claim among them, go as one sub-batch, with their ``ub``
-    and ``at_upper`` rows, to the host copy :func:`certify_uniform_result`,
-    which checks them again and escalates them as it does a whole batch;
-    the solve record counts them as ``certify_fallback``.
+    every instance runs in one launch of the certifier kernel
+    (``ops/certify_kernel.py::certify_le_``, ``csrc/certify_bounded.cu``),
+    with ``ub`` and the solve's ``at_upper`` where the batch has bounds; it
+    reads ``A``, ``b``, ``c`` and ``ub`` as the user gave them: an upload is
+    reused where it holds the exact values, else the array goes up again in
+    float64 (``ub`` goes up in its own float32 or float64).  The instances
+    it does not certify, every non-optimal claim among them, go as one
+    sub-batch, with their ``ub`` and ``at_upper`` rows, to the host copy
+    :func:`certify_uniform_result`, which checks them again and escalates
+    them as it does a whole batch; the solve record counts them as
+    ``certify_fallback``.
     """
-    from ..ops.certify_kernel import certify_le_, certify_le_bounded_
+    from ..ops.certify_kernel import certify_le_
 
     c_t, A_t, b_t, _, max_t = tensors
     dev = A_t.device
@@ -701,19 +702,17 @@ def _certify_on_device(res: BatchResult, c, A, b, ops, maximize,
                                 device=dev)
         status = torch.as_tensor(np.asarray(res.status, np.int32),
                                  device=dev)
-        if ub is None:
-            ok_t, x_t, fun_t = certify_le_(exact[0], exact[1], exact[2],
-                                           max_t, basis, status, _CERT_TOL)
-        else:
+        ub_t = up_t = None
+        if ub is not None:
             ub = np.asarray(ub)
             ub_t = torch.as_tensor(np.ascontiguousarray(
                 ub if ub.dtype in (np.float32, np.float64)
                 else ub.astype(np.float64)), device=dev)
-            up_t = (None if res.at_upper is None else torch.as_tensor(
-                np.ascontiguousarray(res.at_upper, bool), device=dev))
-            ok_t, x_t, fun_t = certify_le_bounded_(
-                exact[0], exact[1], exact[2], max_t, basis, status, ub_t,
-                up_t, _CERT_TOL)
+            if res.at_upper is not None:
+                up_t = torch.as_tensor(
+                    np.ascontiguousarray(res.at_upper, bool), device=dev)
+        ok_t, x_t, fun_t = certify_le_(*exact, max_t, basis, status,
+                                       _CERT_TOL, ub_t, up_t)
         certified = ok_t.cpu().numpy()
         x = x_t.cpu().numpy()
         fun = fun_t.cpu().numpy()
@@ -1028,10 +1027,13 @@ def solve_arrays_stream(batches, config: SolverConfig = DEFAULT_CONFIG,
     """Pipelined sweep over an iterable of ``(c, A, b, ops[, ub])`` batches.
 
     Same contract as the JAX function: one :class:`BatchResult` a batch, in
-    order, each equal to :meth:`BatchedSimplexSolver.solve_arrays` on that
-    batch (the same assembly, kernels and certifier); a batch with a fifth
-    element ``ub`` runs the bounded solver (K3), and bounded and classic
-    batches may mix in one stream; ``config.certify`` certifies every batch.
+    order, each from the assembly and kernels of
+    :meth:`BatchedSimplexSolver.solve_arrays` on that batch; a batch with a
+    fifth element ``ub`` runs the bounded solver (K3), and bounded and
+    classic batches may mix in one stream; ``config.certify`` certifies
+    every batch, on the host copy (:func:`certify_uniform_result`), where
+    ``solve_arrays`` certifies an all-``<=`` CUDA batch on the card
+    (:func:`_certify_on_device`).
 
     The overlap the JAX function gets from asynchronous dispatch is explicit
     here, because the solve loop reads its state once a chunk and so blocks

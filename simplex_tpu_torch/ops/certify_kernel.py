@@ -1,47 +1,45 @@
-"""The float64 certifiers of all-``<=`` batches, without and with upper
-bounds: CUDA kernel wrappers and their plain twins.
+"""The float64 certifier of all-``<=`` batches, with optional upper
+bounds: the CUDA kernel's wrapper and its plain twin.
 
-For every instance of a batch of LPs ``min c_min·x  s.t.  A x <= b, x >= 0``
-(``b >= 0``; ``c_min = -c`` where the instance maximizes) and the basis its
-solve claims, :func:`certify_le_` checks the KKT system in IEEE float64
-against the exact inputs, as ``models/certify.py::certify_sweep_le_f64``
-checks it with ``ub=None``:
+For every instance of a batch of LPs ``min c_min·x  s.t.  A x <= b, 0 <= x
+<= ub`` (``b >= 0``; ``c_min = -c`` where the instance maximizes; ``ub``
+(n,) or (B, n), entries in [0, +inf], and one ``+inf`` row where the
+caller gives none) and the basis and ``at_upper`` (B, >= n) its solve
+claims, :func:`certify_le_` checks the KKT system in IEEE float64 against
+the exact inputs, as ``models/certify.py::certify_sweep_le_f64`` checks it
+with ``ub`` and ``at_upper``:
 
 * the claim: ``status == OPTIMAL`` and every basic column ``0 <= k < n+m``
   (structural ``j < n``, slack ``i`` at ``n + i``);
-* ``B x_B = b`` and ``Bᵀ y = c_B`` from one LU of the basis matrix with
-  partial pivoting (the host copy factors it twice, once for each);
-* ``x_B >= -tol (1 + max|b|)``; ``y <= tol (1 + max|c|)``; the reduced costs
-  ``c_min_j - Σ_i y_i A_ij >= -tol (1 + max|c|)`` on the nonbasic structural
-  columns; ``x_B`` and ``y`` finite, and no exact zero pivot.
+* the at-upper set: ``at_upper`` where ``ub`` is finite and the column is
+  not basic (empty without ``at_upper``), ``u = ub`` there and 0
+  elsewhere;
+* ``B x_B = b - A u`` and ``Bᵀ y = c_B`` from one LU of the basis matrix
+  with partial pivoting (the host copy factors it twice, once for each);
+* ``x_B >= -tol (1 + max|b|)``, and ``x_B <= ub_B + tol (1 + max|b|)``
+  where the basic column is structural with a finite bound; ``y <= tol (1
+  + max|c|)``; on the nonbasic structural columns, ``rc_j = c_min_j - Σ_i
+  y_i A_ij <= tol (1 + max|c|)`` at upper, else ``rc_j >= -tol (1 +
+  max|c|)`` unless ``ub_j == 0``; ``x_B`` and ``y`` finite, and no exact
+  zero pivot.
 
-:func:`certify_le_bounded_` checks the same batch with upper bounds ``0 <=
-x <= ub`` (``ub`` (n,) or (B, n), entries in [0, +inf]) and the solve's
-``at_upper`` (B, >= n), as ``certify_sweep_le_f64`` checks it with ``ub``
-and ``at_upper``: the at-upper set is ``at_upper`` where ``ub`` is finite
-and the column is not basic, ``u = ub`` there and 0 elsewhere;
-
-* ``B x_B = b - A u``; besides ``x_B >= -tol (1 + max|b|)``, ``x_B <= ub_B +
-  tol (1 + max|b|)`` where the basic column is structural with a finite
-  bound;
-* ``y <= tol (1 + max|c|)``; on the nonbasic structural columns, ``rc_j <=
-  tol (1 + max|c|)`` at upper, else ``rc_j >= -tol (1 + max|c|)`` unless
-  ``ub_j == 0``.
-
-Both return ``(certified (B,) bool, x (B, n) float64, fun (B,) float64)`` on
-the inputs' device: ``x_j = max(x_B, 0)`` at the basic structural columns,
-``ub_j`` at the at-upper ones and 0 elsewhere, ``fun = c_min·x``; both NaN
-where an instance is not certified.  ``A``, ``b``, ``c`` and ``ub`` are read
-in their own types (float32 or float64), widened to float64.  ``tol`` is the
-caller's: ``models/batched.py`` passes the host copy's
+Without bounds (``ub`` +inf everywhere, no ``at_upper``) the at-upper set
+is empty and ``u = 0``, so this is the check of ``certify_sweep_le_f64``
+with ``ub=None``, term for term.  The result is ``(certified (B,) bool, x
+(B, n) float64, fun (B,) float64)`` on the inputs' device: ``x_j = max(x_B,
+0)`` at the basic structural columns, ``ub_j`` at the at-upper ones and 0
+elsewhere, ``fun = c_min·x``; both NaN where an instance is not certified.
+``A``, ``b``, ``c`` and ``ub`` are read in their own types (float32 or
+float64), widened to float64.  ``tol`` is the caller's:
+``models/batched.py`` passes the host copy's
 (``certify_uniform_result``'s).
 
-* :func:`certify_le_` and :func:`certify_le_bounded_` launch the
-  hand-written kernels (``csrc/certify_le.cu``, ``csrc/certify_bounded.cu``;
-  one warp an instance) on CUDA tensors and run the twins on CPU tensors;
-  they raise on anything else, with no fallback from a kernel to its twin.
-* :func:`certify_le_ref` and :func:`certify_le_bounded_ref` are the plain
-  PyTorch twins: the kernels' spec, step for step, and the CPU path.
+* :func:`certify_le_` launches the hand-written kernel
+  (``csrc/certify_bounded.cu``; one warp an instance) on CUDA tensors and
+  runs the twin on CPU tensors; it raises on anything else, with no
+  fallback from the kernel to its twin.
+* :func:`certify_le_ref` is the plain PyTorch twin: the kernel's spec,
+  step for step, and the CPU path.
 """
 from __future__ import annotations
 
@@ -53,24 +51,26 @@ from ..runtime import counters
 # Rows a kernel instance holds: two a lane of its warp.
 MAX_ROWS = 64
 
-# Kernel launches since the counter was last reset to 0 (CUDA only), of
-# csrc/certify_le.cu and csrc/certify_bounded.cu.
+# Kernel launches since the counter was last reset to 0 (CUDA only).
 LAUNCHES_CERT = 0
-LAUNCHES_CERT_BOUNDED = 0
 
 
-def _prepare(A, b, c, maximize, basis, status):
-    """Check the arguments; returns ``(B, m, n)``."""
+def _prepare(A, b, c, maximize, basis, status, ub, at_upper):
+    """Check the arguments; returns ``(B, m, n, ub)``, ``ub`` one ``+inf``
+    row where it is None."""
     if not isinstance(A, torch.Tensor) or A.dim() != 3:
         raise ValueError("A must be a 3-D (B, m, n) tensor")
     B, m, n = A.shape
     if not 1 <= m <= MAX_ROWS or n < 1:
         raise ValueError(f"A must have 1..{MAX_ROWS} rows and a column, got "
                          f"{tuple(A.shape)}")
-    for name, v, shape in (("A", A, (B, m, n)), ("b", b, (B, m)),
-                           ("c", c, (B, n))):
-        if not isinstance(v, torch.Tensor) or tuple(v.shape) != shape:
-            raise ValueError(f"{name} must be a {shape} tensor")
+    if ub is None:
+        ub = torch.full((n,), torch.inf, device=A.device)
+    for name, v, shapes in (("A", A, [(B, m, n)]), ("b", b, [(B, m)]),
+                            ("c", c, [(B, n)]), ("ub", ub, [(n,), (B, n)])):
+        if not isinstance(v, torch.Tensor) or tuple(v.shape) not in shapes:
+            raise ValueError(f"{name} must be a "
+                             f"{' or '.join(map(str, shapes))} tensor")
         if v.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"{name} must be float32 or float64, got "
                             f"{v.dtype}")
@@ -83,24 +83,8 @@ def _prepare(A, b, c, maximize, basis, status):
         raise ValueError("maximize and status must be (B,) tensors")
     if basis.dim() != 2 or basis.shape[0] != B or basis.shape[1] < m:
         raise ValueError(f"basis must be (B, >= m) = ({B}, >= {m})")
-    for name, v in (("A", A), ("b", b), ("c", c), ("maximize", maximize),
-                    ("basis", basis), ("status", status)):
-        if v.device != A.device:
-            raise ValueError(f"{name} is on {v.device}, A on {A.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return B, m, n
-
-
-def _prepare_bounds(ub, at_upper, A):
-    """Check the bounded certifier's own arguments against ``A``."""
-    B, _, n = A.shape
-    if not isinstance(ub, torch.Tensor) or tuple(ub.shape) not in ((n,),
-                                                                   (B, n)):
-        raise ValueError(f"ub must be an ({n},) or ({B}, {n}) tensor")
-    if ub.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ub must be float32 or float64, got {ub.dtype}")
-    args = [("ub", ub)]
+    args = [("A", A), ("b", b), ("c", c), ("ub", ub), ("maximize", maximize),
+            ("basis", basis), ("status", status)]
     if at_upper is not None:
         if not isinstance(at_upper, torch.Tensor) \
                 or at_upper.dtype != torch.bool:
@@ -114,6 +98,7 @@ def _prepare_bounds(ub, at_upper, A):
             raise ValueError(f"{name} is on {v.device}, A on {A.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return B, m, n, ub
 
 
 def _factor(A64, basis, status, n):
@@ -184,40 +169,13 @@ def _at_basic(z, is_struct, safe, n):
                        device=z.device).scatter_(1, slot, z)[:, :n]
 
 
-def certify_le_ref(A, b, c, maximize, basis, status, tol: float):
+def certify_le_ref(A, b, c, maximize, basis, status, tol: float, ub=None,
+                   at_upper=None):
     """The certificate of every instance in plain PyTorch float64 (the
-    module's docstring), in the kernel's order of steps."""
-    B, m, n = _prepare(A, b, c, maximize, basis, status)
-    f64 = torch.float64
-    A64, b64, c64 = A.to(f64), b.to(f64), c.to(f64)
-    c_min = torch.where(maximize[:, None], -c64, c64)
-    LU, perm, diag, ok, is_struct, safe = _factor(A64, basis, status, n)
-    c_B = torch.where(is_struct, c_min.gather(1, safe), 0.0)
-    scale = 1.0 + b64.abs().amax(1)
-    c_scale = 1.0 + c64.abs().amax(1)
-    z = _solve(LU, diag, perm, b64)
-    y = _solve_t(LU, diag, perm, c_B)
-
-    ok &= torch.isfinite(z).all(1) & torch.isfinite(y).all(1)
-    ok &= (z >= -tol * scale[:, None]).all(1)
-    ok &= (y <= tol * c_scale[:, None]).all(1)
-    rc = c_min - torch.einsum("bm,bmn->bn", y, A64)
-    xs = _at_basic(z.clamp_min(0.0), is_struct, safe, n)
-    basic = _at_basic(is_struct, is_struct, safe, n)
-    ok &= (basic | (rc >= -tol * c_scale[:, None])).all(1)
-    fun = (c_min * xs).sum(1)
-    return (ok, torch.where(ok[:, None], xs, torch.nan),
-            torch.where(ok, fun, torch.nan))
-
-
-def certify_le_bounded_ref(A, b, c, maximize, basis, status, ub, at_upper,
-                           tol: float):
-    """The bounded certificate of every instance in plain PyTorch float64
-    (the module's docstring), in the kernel's order of steps: the basis
-    matrix and ``y`` first, then the columns (reduced costs, the at-upper
-    set, ``b_eff``), then ``x_B``."""
-    B, m, n = _prepare(A, b, c, maximize, basis, status)
-    _prepare_bounds(ub, at_upper, A)
+    module's docstring), in the kernel's order of steps: the basis matrix
+    and ``y`` first, then the columns (reduced costs, the at-upper set,
+    ``b_eff``), then ``x_B``."""
+    B, m, n, ub = _prepare(A, b, c, maximize, basis, status, ub, at_upper)
     f64 = torch.float64
     A64, b64, c64 = A.to(f64), b.to(f64), c.to(f64)
     c_min = torch.where(maximize[:, None], -c64, c64)
@@ -250,47 +208,14 @@ def certify_le_bounded_ref(A, b, c, maximize, basis, status, ub, at_upper,
             torch.where(ok, fun, torch.nan))
 
 
-def certify_le_(A, b, c, maximize, basis, status, tol: float):
+def certify_le_(A, b, c, maximize, basis, status, tol: float, ub=None,
+                at_upper=None):
     """:func:`certify_le_ref` through the kernel on a CUDA tensor (built on
     first use), the twin on a CPU tensor; any other device raises."""
-    B, m, n = _prepare(A, b, c, maximize, basis, status)
+    B, m, n, ub = _prepare(A, b, c, maximize, basis, status, ub, at_upper)
     if A.device.type == "cpu":
-        return certify_le_ref(A, b, c, maximize, basis, status, tol)
-    if A.device.type != "cuda":
-        raise ValueError(f"the certifier runs on cuda or cpu tensors, not "
-                         f"{A.device}")
-    from ..runtime import kernels
-
-    lib = kernels.library()
-    dev = A.device
-    certified = torch.empty((B,), dtype=torch.bool, device=dev)
-    x = torch.empty((B, n), dtype=torch.float64, device=dev)
-    fun = torch.empty((B,), dtype=torch.float64, device=dev)
-    fn = (lib.certify_le_f32 if A.dtype == torch.float32
-          else lib.certify_le_f64)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(A.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 int(b.dtype == torch.float64), int(c.dtype == torch.float64),
-                 maximize.data_ptr(), basis.data_ptr(), basis.shape[1],
-                 status.data_ptr(), B, m, n, float(tol),
-                 certified.data_ptr(), x.data_ptr(), fun.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"certify_le launch failed: CUDA error {err}")
-    counters.add(globals(), "LAUNCHES_CERT")
-    return certified, x, fun
-
-
-def certify_le_bounded_(A, b, c, maximize, basis, status, ub, at_upper,
-                        tol: float):
-    """:func:`certify_le_bounded_ref` through the kernel on a CUDA tensor
-    (built on first use), the twin on a CPU tensor; any other device
-    raises."""
-    B, m, n = _prepare(A, b, c, maximize, basis, status)
-    _prepare_bounds(ub, at_upper, A)
-    if A.device.type == "cpu":
-        return certify_le_bounded_ref(A, b, c, maximize, basis, status, ub,
-                                      at_upper, tol)
+        return certify_le_ref(A, b, c, maximize, basis, status, tol, ub,
+                              at_upper)
     if A.device.type != "cuda":
         raise ValueError(f"the certifier runs on cuda or cpu tensors, not "
                          f"{A.device}")
@@ -314,7 +239,6 @@ def certify_le_bounded_(A, b, c, maximize, basis, status, ub, at_upper,
                  status.data_ptr(), B, m, n, float(tol),
                  certified.data_ptr(), x.data_ptr(), fun.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"certify_le_bounded launch failed: CUDA error "
-                           f"{err}")
-    counters.add(globals(), "LAUNCHES_CERT_BOUNDED")
+        raise RuntimeError(f"certify_le launch failed: CUDA error {err}")
+    counters.add(globals(), "LAUNCHES_CERT")
     return certified, x, fun

@@ -114,11 +114,6 @@ def _k3(real):
 
 
 def _cert():
-    return [_P, _P, _P, _I32, _I32, _P, _P, _I64, _P, _I64, _I64, _I64,
-            ctypes.c_double, _P, _P, _P, _P]
-
-
-def _cert_bounded():
     return [_P, _P, _P, _P, _I32, _I32, _I32, _I64, _P, _I64, _P, _P, _I64,
             _P, _I64, _I64, _I64, ctypes.c_double, _P, _P, _P, _P]
 
@@ -139,15 +134,11 @@ ARGTYPES = {
     # x, out, numel, stream
     "k4_stream_copy_f32": [_P, _P, _I64, _P],
     "k4_stream_copy_f64": [_P, _P, _I64, _P],
-    # csrc/certify_le.cu: A, b, c, b_f64, c_f64, maximize, basis, ldb,
-    # status, B, m, n, tol, certified, x, fun, stream
-    "certify_le_f32": _cert(),
-    "certify_le_f64": _cert(),
     # csrc/certify_bounded.cu: A, b, c, ub, b_f64, c_f64, ub_f64, ld_ub,
     # at_upper, ld_up, maximize, basis, ldb, status, B, m, n, tol,
     # certified, x, fun, stream
-    "certify_le_bounded_f32": _cert_bounded(),
-    "certify_le_bounded_f64": _cert_bounded(),
+    "certify_le_bounded_f32": _cert(),
+    "certify_le_bounded_f64": _cert(),
     # csrc/graph_steps.cu: n, parts, flags, counts, limits, exec_out,
     # stream; exec, stream; graph, n_types, counts; stream_out
     "graph_chain_build": [_I64, _P, _P, _P, _P, _P, _P],

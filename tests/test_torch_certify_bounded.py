@@ -1,8 +1,9 @@
-"""The float64 certifier of bounded all-``<=`` batches on the card
-(``ops/certify_kernel.py::certify_le_bounded_``, ``csrc/certify_bounded.cu``)
-and its route (``models/batched.py::_certify_on_device`` with ``ub``).
+"""The float64 certifier of all-``<=`` batches on the card with bounds
+(``ops/certify_kernel.py::certify_le_`` with ``ub``,
+``csrc/certify_bounded.cu``) and its route
+(``models/batched.py::_certify_on_device`` with ``ub``).
 
-On the CPU: the twin ``certify_le_bounded_ref`` against the host copy
+On the CPU: the twin ``certify_le_ref`` with ``ub`` against the host copy
 ``models/certify.py::certify_sweep_le_f64(ub=, at_upper=)`` on batches the
 port solves: the ``mknapcb9`` law (``lpbench/traffic/mknap.py``) at a small
 width and at 30 x 500, and random batches of both senses whose bounds hold
@@ -19,9 +20,8 @@ certification and escalation flags and ``at_upper``; its fallback's
 sub-batch carries the bad instances' ``ub`` and ``at_upper`` rows.
 
 On a card (``gpu``; this file imports no JAX, so ``--noconftest`` runs it
-there): the kernel against the twin, ``solve_arrays`` launching it once a
-call on a bounded batch and reaching the CPU path's verdicts, and each
-certifier's launch count left alone by the other's batches.
+there): the kernel against the twin, and ``solve_arrays`` launching it once
+a call on a bounded batch and reaching the CPU path's verdicts.
 """
 import dataclasses
 import functools
@@ -178,12 +178,12 @@ def _fresh(case):
 
 
 def _tensors(c, A, b, ub, maxi, res, device):
-    """The certifier's arguments on ``device``, then the tolerance the
-    solve passes (the host copy's)."""
+    """The certifier's arguments on ``device``: the tolerance the solve
+    passes (the host copy's) before ``ub`` and ``at_upper``."""
     t = functools.partial(torch.as_tensor, device=device)
     return (t(A), t(b), t(c), t(maxi), t(res.basis.astype(np.int32)),
-            t(res.status.astype(np.int32)), t(ub),
-            None if res.at_upper is None else t(res.at_upper), tmb._CERT_TOL)
+            t(res.status.astype(np.int32)), tmb._CERT_TOL, t(ub),
+            None if res.at_upper is None else t(res.at_upper))
 
 
 def _close(got, want, scale):
@@ -198,7 +198,7 @@ def _close(got, want, scale):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_twin_agrees_with_the_host_certifier(case):
     c, A, b, ub, maxi, res, planted, ignored = _fresh(case)
-    ok, x, fun = (t.numpy() for t in ck.certify_le_bounded_ref(
+    ok, x, fun = (t.numpy() for t in ck.certify_le_ref(
         *_tensors(c, A, b, ub, maxi, res, CPU)))
     host = tcert.certify_sweep_le_f64(res.status, res.basis, c, A, b, maxi,
                                       ub=ub, at_upper=res.at_upper)
@@ -224,10 +224,10 @@ def test_at_upper_on_a_basic_column_changes_nothing():
     verdict and ``x`` are those without it."""
     c, A, b, ub, maxi, res, _, (i, j) = _fresh("random-m30x50")
     args = list(_tensors(c, A, b, ub, maxi, res, CPU))
-    ok, x, fun = ck.certify_le_bounded_ref(*args)
+    ok, x, fun = ck.certify_le_ref(*args)
     res.at_upper[i, j] = False
-    args[7] = torch.as_tensor(res.at_upper)
-    ok2, x2, fun2 = ck.certify_le_bounded_ref(*args)
+    args[8] = torch.as_tensor(res.at_upper)
+    ok2, x2, fun2 = ck.certify_le_ref(*args)
     assert ok[i] and ok2[i]
     assert torch.equal(x[i], x2[i]) and fun[i] == fun2[i]
 
@@ -325,15 +325,15 @@ def test_the_route_takes_cuda_le_batches_with_bounds():
 def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     c, A, b, ub, maxi, res, _, _ = _fresh("random-m5x9")
     args = list(_tensors(c, A, b, ub, maxi, res, CPU))
-    bad = {6: [args[6].double().half(), args[6][:, :-1], args[6][None],
-               args[6].t().contiguous().t()],
-           7: [args[7].to(torch.uint8), args[7][:, :A.shape[2] - 1],
-               args[7][:1]]}
+    bad = {7: [args[7].double().half(), args[7][:, :-1], args[7][None],
+               args[7].t().contiguous().t()],
+           8: [args[8].to(torch.uint8), args[8][:, :A.shape[2] - 1],
+               args[8][:1]]}
     for pos, values in bad.items():
         for v in values:
             with pytest.raises((TypeError, ValueError)):
-                ck.certify_le_bounded_(*args[:pos], v, *args[pos + 1:])
-    ok, _, _ = ck.certify_le_bounded_(*args[:7], None, args[8])
+                ck.certify_le_(*args[:pos], v, *args[pos + 1:])
+    ok, _, _ = ck.certify_le_(*args[:8], None)
     assert ok.dtype == torch.bool and ok.shape == (A.shape[0],)
 
 
@@ -370,11 +370,11 @@ def test_kernel_matches_the_twin(shape):
     c, A, b, ub, maxi, res, planted = _cuda_solved(law, 31, B, m, n)
     for dt in (np.float32, np.float64):
         args = (c.astype(dt), A.astype(dt), b, ub.astype(dt), maxi, res)
-        before = ck.LAUNCHES_CERT_BOUNDED
-        ok, x, fun = ck.certify_le_bounded_(*_tensors(*args, "cuda"))
+        before = ck.LAUNCHES_CERT
+        ok, x, fun = ck.certify_le_(*_tensors(*args, "cuda"))
         torch.cuda.synchronize()
-        assert ck.LAUNCHES_CERT_BOUNDED == before + 1
-        rok, rx, rfun = ck.certify_le_bounded_ref(*_tensors(*args, CPU))
+        assert ck.LAUNCHES_CERT == before + 1
+        rok, rx, rfun = ck.certify_le_ref(*_tensors(*args, CPU))
         np.testing.assert_array_equal(ok.cpu().numpy(), rok.numpy())
         assert not rok[planted].any() and rok.sum() >= B - len(planted) - 8
         xs = np.abs(np.nan_to_num(rx.numpy())).max(1, keepdims=True)
@@ -391,11 +391,10 @@ def test_solve_arrays_certifies_bounded_batches_on_the_card():
                                    ("random", 35, 256, 64, 80, np.float32)):
         c, A, b, ub, maxi = _lps(law, seed, B, m, n, dt, False)
         ops = np.full(m, -1)
-        before = (ck.LAUNCHES_CERT, ck.LAUNCHES_CERT_BOUNDED)
+        before = ck.LAUNCHES_CERT
         gpu = pt.BatchedSimplexSolver(pt.SolverConfig()).solve_arrays(
             c, A, b, ops, maximize=maxi, ub=ub)
-        assert (ck.LAUNCHES_CERT, ck.LAUNCHES_CERT_BOUNDED) == (
-            before[0], before[1] + 1)
+        assert ck.LAUNCHES_CERT == before + 1
         cpu = pt.BatchedSimplexSolver(pt.SolverConfig(device=CPU)) \
             .solve_arrays(c, A, b, ops, maximize=maxi, ub=ub)
         np.testing.assert_array_equal(gpu.status, cpu.status)
@@ -405,23 +404,3 @@ def test_solve_arrays_certifies_bounded_batches_on_the_card():
         assert np.all(np.abs(gpu.z[ok] - cpu.z[ok])
                       <= 1e-6 * (1 + np.abs(cpu.z[ok])))
 
-
-@pytest.mark.gpu
-def test_each_certifier_leaves_the_others_count_alone():
-    _card()
-    solver = pt.BatchedSimplexSolver(pt.SolverConfig())
-    c, A, b, ub, maxi = _lps("random", 36, 64, 9, 13, np.float32, False)
-    ops = np.full(9, -1)
-    before = (ck.LAUNCHES_CERT, ck.LAUNCHES_CERT_BOUNDED)
-    solver.solve_arrays(c, A, b, ops, maximize=maxi)
-    assert (ck.LAUNCHES_CERT, ck.LAUNCHES_CERT_BOUNDED) == (
-        before[0] + 1, before[1])
-    solver.solve_arrays(c, A, b, ops, maximize=maxi, ub=ub)
-    assert (ck.LAUNCHES_CERT, ck.LAUNCHES_CERT_BOUNDED) == (
-        before[0] + 1, before[1] + 1)
-    ge = ops.copy()
-    ge[3] = 1
-    res = solver.solve_arrays(c, A, b, ge, maximize=maxi, ub=ub)
-    assert (ck.LAUNCHES_CERT, ck.LAUNCHES_CERT_BOUNDED) == (
-        before[0] + 1, before[1] + 1)
-    assert res.certified is not None

@@ -1,6 +1,6 @@
-"""The float64 certifier of all-``<=`` batches on the card
-(``ops/certify_kernel.py``, ``csrc/certify_le.cu``) and its route
-(``models/batched.py::_certify_on_device``).
+"""The float64 certifier of all-``<=`` batches on the card without bounds
+(``ops/certify_kernel.py``, ``csrc/certify_bounded.cu`` with one ``+inf``
+bound row) and its route (``models/batched.py::_certify_on_device``).
 
 On the CPU: the twin ``certify_le_ref`` against the host copy
 ``models/certify.py::certify_sweep_le_f64`` on solved batches, with failures
@@ -155,6 +155,20 @@ def test_twin_agrees_with_the_host_certifier(case):
     assert np.isnan(x[~ok]).all() and np.isnan(fun[~ok]).all()
 
 
+@pytest.mark.parametrize("case", ["m1", "m5-n-below-m", "m30x50-f64-inputs",
+                                  "m64"])
+def test_no_bounds_is_one_inf_row(case):
+    """Without ``ub`` the twin and the wrapper give, bit for bit, what they
+    give with an explicit ``(n,)`` ``+inf`` row and no ``at_upper``."""
+    c, A, b, maxi, res, _ = _fresh(case)
+    args = _tensors(c, A, b, maxi, res, CPU)
+    inf = torch.full((A.shape[2],), torch.inf, dtype=args[0].dtype)
+    for fn in (ck.certify_le_ref, ck.certify_le_):
+        for got, want in zip(fn(*args), fn(*args, inf, None)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
 def test_twin_rejects_a_singular_basis_of_slacks():
     """Two basic columns of one slack: an exact zero pivot."""
     c, A, b, maxi, res, _ = _fresh("m5")
@@ -222,7 +236,7 @@ def test_the_route_takes_only_cuda_le_batches_without_bounds():
     assert tmb._certifies_on_device(ok, b, ops, None)
     assert not tmb._certifies_on_device(ok, b, np.array([-1, 1, -1]), None)
     assert not tmb._certifies_on_device(ok, -b, ops, None)
-    # Bounds the kernels take go to the bounded one
+    # Bounds in [0, +inf] go to the same kernel
     # (tests/test_torch_certify_bounded.py); a negative one goes nowhere.
     assert not tmb._certifies_on_device(ok, b, ops, -np.ones(4))
     assert not tmb._certifies_on_device(T((2, ck.MAX_ROWS + 1, 4)),
@@ -323,7 +337,7 @@ def test_batches_the_kernel_does_not_take_stay_on_the_host():
     ge[3] = 1
     neg = b.copy()
     neg[5, 2] = -0.5
-    for kw in (dict(ops=ge), dict(b=neg), dict(ub=np.full(13, 4.0))):
+    for kw in (dict(ops=ge), dict(b=neg)):
         args = dict(c=c, A=A, b=b, ops=ops, maximize=maxi)
         args.update(kw)
         before = ck.LAUNCHES_CERT
